@@ -16,17 +16,20 @@ is printed.
 3. frames (main path, part 2): 2 warm-up and 8 timed frames at the
    ``bench.py`` headline operating point, each ``Engine.step`` (split
    dispatch: GI update -> base frame with its G-buffer -> GI composite, at
-   1280x800, every tracer superstep one launch of K1) and
-   ``temporal_upscale(..., warp_taps="pallas")`` to 3840x2400 (K2);
+   1280x800, every trace one launch of K1, with no host read between its
+   supersteps) and ``temporal_upscale(..., warp_taps="pallas")`` to
+   3840x2400 (K2);
 4. reference: the same path on a 64^3 world at 128x80, on the GPU and on
    the CPU, where every kernel is its plain PyTorch version (the CPU test
    suite holds those against the JAX package): equal worlds, >= 50 dB
    frames;
 5. kernels: K1, K2 and K3 against their plain versions on the inputs the
-   main path gave them (the primary trace's states, the last frame's
+   main path gave them (the primary trace's start state, the last frame's
    history and motion, the world's distance field), with their times, the
    least time the card could take (``bound_ms``, from this run's data) and
-   the main path's launch counts.
+   the main path's launch counts.  K1 is held against the plain loop twice:
+   superstep by superstep (one launch each, a budget of one superstep) and
+   as the whole primary trace in one launch.
 
 The kernel checks come after the frames because they take the main path's
 own inputs.  Every launch counter is set to 0 just before each main-path
@@ -105,7 +108,7 @@ def reset_counts() -> None:
 
     for m in kernel_modules().values():
         m.launches = 0
-    wavefront.stats.update(traces=0, supersteps=0)
+    wavefront.reset_stats()
 
 
 def read_counts() -> dict:
@@ -299,25 +302,25 @@ def phase_reference(dev) -> dict:
 
 def capture_primary(eng, dev):
     """The primary trace's start state and direction invariants, taken at
-    its first K1 launch during a re-render of the current pose."""
+    its K1 call during a re-render of the current pose."""
     from rvgrt_tpu_torch.ops import superstep_kernel
 
     r = eng.ecfg.render
     n = r.width * r.height
-    real = superstep_kernel.fused_superstep
+    real = superstep_kernel.trace_supersteps
     got = {}
 
-    def hook(cfg, rcfg, table, dirs, s, sky_y=None, live=None):
+    def hook(cfg, rcfg, table, dirs, s, sky_y=None, **kw):
         if "s" not in got and s["flags"].numel() == n:
             got["s"] = {k: v.clone() for k, v in s.items()}
             got["dirs"] = tuple(a.clone() for a in dirs)
-        real(cfg, rcfg, table, dirs, s, sky_y=sky_y, live=live)
+        return real(cfg, rcfg, table, dirs, s, sky_y=sky_y, **kw)
 
-    superstep_kernel.fused_superstep = hook
+    superstep_kernel.trace_supersteps = hook
     try:
         eng.render_at(eng.character.ray_jitter_ndc(), time_s=1.0)
     finally:
-        superstep_kernel.fused_superstep = real
+        superstep_kernel.trace_supersteps = real
     return got["s"], got["dirs"]
 
 
@@ -327,20 +330,24 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def k1_step_cost(cfg, rcfg, table, dirs, s, nxt, sky_y) -> tuple:
-    """The bytes and operations one superstep needs, taking state ``s`` to
-    ``nxt``, counted from the branch each lane takes (csrc/
-    superstep_kernel.cu).  Every lane reads its flags word; a lane that
-    retires on the sky test reads py and dy; a sphere step reads p and d,
-    and on entering DDA the 3 tDelta and 3 step words; a probe reads the
-    cell, p and d, and its on a jump; a DDA step reads the cell, tMax,
-    tDelta, step and its.  Each distinct table word the lanes gather is
-    read once (4 B; the card moves a 32 B sector per random word, which
-    this bound does not charge), and a state word is written only where
-    its value changed.  Operations are an estimate per branch (DDA: per
-    substep taken, from its), all charged at the int32 rate."""
-    import torch
+#: K1's per-lane words other than flags: state, then direction
+K1_POS, K1_CELL, K1_TM = ("px", "py", "pz"), ("ix", "iy", "iz"), \
+    ("tmx", "tmy", "tmz")
+K1_DIR = ("dx", "dy", "dz")
+K1_DD_ST = ("ddx", "ddy", "ddz", "stx", "sty", "stz")
+K1_READ_WORDS = K1_POS + K1_CELL + ("its",) + K1_TM + K1_DIR + K1_DD_ST
 
+
+def k1_step_ops(cfg, rcfg, dirs, s, nxt, sky_y, gathered, read,
+                turned) -> int:
+    """The operations one superstep needs, taking state ``s`` to ``nxt``,
+    estimated per branch each lane takes (csrc/superstep_kernel.cu; DDA:
+    per substep taken, from its), all charged at the int32 rate.  Marks in
+    the bool mask ``gathered`` the table words the lanes gather, and in
+    ``read`` (a bool mask per word of ``K1_READ_WORDS``) the lanes whose
+    start value of that word this superstep reads.  ``turned`` marks the
+    lanes whose cell and tMax words a turn to DDA has set; this superstep's
+    turns are added to it."""
     from rvgrt_tpu_torch.trace import wavefront as wf
 
     pre = wf._superstep_pregather(cfg, rcfg, dirs, s, sky_y=sky_y)
@@ -348,29 +355,64 @@ def k1_step_cost(cfg, rcfg, table, dirs, s, nxt, sky_y) -> tuple:
     after = wf._get(nxt["flags"], wf._PH_SH, wf._PH_W)
     sphere, probe, act = pre["in_sphere"], pre["probe_turn"], \
         pre["action_turn"]
+    live = phase < wf.PHASE_MISS
     sky = (phase == wf.PHASE_SPHERE) & ~sphere
     to_dda = sphere & (after == wf.PHASE_DDA)
-    jumped = probe & (after != wf.PHASE_DDA)
+    march = sphere & (wf._get(nxt["flags"], wf._SP_SH, wf._SP_W)
+                      != wf._get(s["flags"], wf._SP_SH, wf._SP_W))
+    jump = probe & (nxt["its"] != s["its"])
+    gathered[pre["widx"][sphere | probe | act].long()] = True
+
+    def mark(keys, m):
+        for key in keys:
+            read[key] |= m
+
+    if sky_y is not None:
+        mark(("py", "dy"), sky | sphere)  # the sky test
+    mark(K1_POS, sphere | jump)  # the gather index, OOB test, march, jump
+    mark(K1_DIR, march | jump)
+    mark(("its",), jump | act)
+    mark(K1_DD_ST, to_dda | act)  # tMax set-up, the DDA steps
+    mark(K1_CELL, (probe | act) & ~turned)
+    mark(K1_TM, act & ~turned)
+    turned |= to_dda
 
     def count(m):
         return int(m.sum())
 
-    n = s["flags"].numel()
-    gathered = pre["widx"][sphere | probe | act]
-    reads = (4 * n + 8 * count(sky) + 24 * count(sphere)
-             + 24 * count(to_dda) + 36 * count(probe) + 4 * count(jumped)
-             + 52 * count(act) + 4 * int(torch.unique(gathered).numel()))
-    writes = 4 * sum(int((_bits(nxt[k]) != _bits(s[k])).sum())
-                     for k in wf.STATE_KEYS)
     substeps = int((nxt["its"] - s["its"])[act].sum())
-    ops = (5 * n + 4 * count(sky) + 30 * count(sphere) + 15 * count(to_dda)
-           + 30 * count(probe) + 10 * count(act) + 15 * substeps)
-    return reads + writes, ops
+    return (5 * count(live) + 4 * count(sky) + 30 * count(sphere)
+            + 15 * count(to_dda) + 30 * count(probe) + 10 * count(act)
+            + 15 * substeps)
+
+
+def k1_trace_bytes(s0, s1, read, gathered) -> dict:
+    """The bytes a whole trace from ``s0`` to ``s1`` must move, each once:
+    every lane's flags word; each other state or direction word whose start
+    value the trace reads (``read``, from ``k1_step_ops``); sky_y; each
+    state word whose value changed, written; each distinct table word
+    gathered, at 4 B (``total``) and at 32 B per distinct 32 B sector of
+    the table, what the card moves for a random word (``total_32b``)."""
+    import torch
+
+    from rvgrt_tpu_torch.trace import wavefront as wf
+
+    n = s0["flags"].numel()
+    reads = 4 * n + 4 * sum(int(m.sum()) for m in read.values()) + 4
+    writes = 4 * sum(int((_bits(s1[k]) != _bits(s0[k])).sum())
+                     for k in wf.STATE_KEYS)
+    words = int(gathered.sum())
+    pad = gathered.new_zeros((-gathered.numel()) % 8)
+    sectors = int(torch.cat([gathered, pad]).view(-1, 8).any(dim=1).sum())
+    return dict(reads=reads, writes=writes, total=reads + writes + 4 * words,
+                total_32b=reads + writes + 32 * sectors)
 
 
 def check_k1(eng, dev) -> dict:
-    """K1 superstep by superstep against the plain superstep over the whole
-    primary trace, bit for bit on all 11 state arrays."""
+    """K1 against the plain loop on the whole primary trace: superstep by
+    superstep (``fused_superstep``, a budget of one superstep a launch) and
+    the whole trace in one launch (``trace_supersteps``), bit for bit on
+    all 11 state arrays and on ``steps``."""
     import torch
 
     from rvgrt_tpu_torch.ops import superstep_kernel as k1
@@ -378,65 +420,82 @@ def check_k1(eng, dev) -> dict:
 
     cfg, rcfg = eng.ecfg.world, eng.ecfg.render
     w = eng.world
+    table, sky_y = w.trace_table, w.sky_y
     s0, dirs = capture_primary(eng, dev)
     n = s0["flags"].numel()
-    sp = {k: v.clone() for k, v in s0.items()}
-    sk = {k: v.clone() for k, v in s0.items()}
-    steps, bytes_total, ops_total, mismatched = 0, 0, 0, 0
-    max_err = 0.0
-    while steps < rcfg.max_supersteps and wf.any_live(sp["flags"]):
-        nxt = k1.superstep_plain(cfg, rcfg, w.trace_table, dirs, sp,
-                                 sky_y=w.sky_y)
-        b, o = k1_step_cost(cfg, rcfg, w.trace_table, dirs, sp, nxt, w.sky_y)
-        bytes_total += b
-        ops_total += o
-        sp = nxt
-        k1.fused_superstep(cfg, rcfg, w.trace_table, dirs, sk, sky_y=w.sky_y)
-        for k in wf.STATE_KEYS:
-            if not torch.equal(_bits(sp[k]), _bits(sk[k])):
-                mismatched += 1
-                max_err = max(max_err, float(
-                    (sp[k].double() - sk[k].double()).abs().max()))
-        steps += 1
-    assert steps > 0
-    assert mismatched == 0, f"K1 differs from its plain version " \
-        f"({mismatched} array-steps, max abs {max_err})"
 
     def fresh():
         return {k: v.clone() for k, v in s0.items()}
 
-    def run_kernel(s):
-        for _ in range(steps):
-            k1.fused_superstep(cfg, rcfg, w.trace_table, dirs, s,
-                               sky_y=w.sky_y)
+    def mismatches(a, b):
+        return [k for k in wf.STATE_KEYS
+                if not torch.equal(_bits(a[k]), _bits(b[k]))]
 
-    def run_plain(s):
-        for _ in range(steps):
-            s = k1.superstep_plain(cfg, rcfg, w.trace_table, dirs, s,
-                                   sky_y=w.sky_y)
+    def max_abs(a, b):
+        return max([float((a[k].double() - b[k].double()).abs().max())
+                    for k in wf.STATE_KEYS] + [0.0])
+
+    # superstep by superstep, in trace_plain's batches
+    sp, sk = fresh(), fresh()
+    k = max(rcfg.steps_per_check, 1)
+    gathered = torch.zeros(table.numel(), dtype=torch.bool, device=dev)
+    read = {key: torch.zeros(n, dtype=torch.bool, device=dev)
+            for key in K1_READ_WORDS}
+    turned = torch.zeros(n, dtype=torch.bool, device=dev)
+    steps, ops_total, bad_steps, max_err = 0, 0, 0, 0.0
+    while steps < rcfg.max_supersteps and wf.any_live(sp["flags"]):
+        for _ in range(k):
+            nxt = k1.superstep_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y)
+            ops_total += k1_step_ops(cfg, rcfg, dirs, sp, nxt, sky_y,
+                                     gathered, read, turned)
+            sp = nxt
+            k1.fused_superstep(cfg, rcfg, table, dirs, sk, sky_y=sky_y)
+            if mismatches(sp, sk):
+                bad_steps += 1
+                max_err = max(max_err, max_abs(sp, sk))
+        steps += k
+    assert steps > 0
+    assert bad_steps == 0, f"K1 (one superstep a launch) differs from its " \
+        f"plain version at {bad_steps} supersteps, max abs {max_err}"
+
+    # the whole trace in one launch
+    s = fresh()
+    got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y))
+    bad = mismatches(sp, s)
+    max_err = max(max_err, max_abs(sp, s))
+    assert not bad and got == steps, \
+        f"K1 (one launch) differs from its plain version: arrays {bad} " \
+        f"(max abs {max_err}), steps {got} vs {steps}"
 
     graph_state = fresh()
 
     def reset():
-        for k, v in s0.items():
-            graph_state[k].copy_(v)
+        for key, v in s0.items():
+            graph_state[key].copy_(v)
 
-    ms = graph_ms(lambda: run_kernel(graph_state), dev, reps=5, warmup=1,
-                  setup=reset) / steps
-    event_ms = timed_ms(run_kernel, dev, reps=5, warmup=1,
-                        setup=fresh) / steps
-    plain_ms = timed_ms(run_plain, dev, reps=5, warmup=1,
-                        setup=fresh) / steps
-    t_bytes = bytes_total / HBM_BYTES_PER_S
+    ms = graph_ms(lambda: k1.trace_supersteps(
+        cfg, rcfg, table, dirs, graph_state, sky_y=sky_y), dev, setup=reset)
+
+    event_ms = timed_ms(lambda s: k1.trace_supersteps(
+        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, setup=fresh)
+    plain_ms = timed_ms(lambda s: k1.trace_plain(
+        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, reps=5, warmup=1,
+        setup=fresh)
+    moved = k1_trace_bytes(s0, sp, read, gathered)
+    t_bytes = moved["total"] / HBM_BYTES_PER_S
     t_ops = ops_total / INT32_OPS_PER_S
-    return dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops) * 1e3 / steps,
+    return dict(ms=ms, event_ms=event_ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes_per_launch=bytes_total / steps,
-                bound_ops_per_launch=ops_total / steps,
-                library_ms=None, max_abs_err=max_err,
-                shape=f"{n} lanes x {steps} supersteps (the primary trace, "
-                      f"per launch)")
+                bound_bytes=moved["total"], bound_read_bytes=moved["reads"],
+                bound_write_bytes=moved["writes"], bound_ops=ops_total,
+                bound_ms_32b_sectors=max(
+                    moved["total_32b"] / HBM_BYTES_PER_S, t_ops) * 1e3,
+                bound_bytes_32b_sectors=moved["total_32b"],
+                table_words_gathered=int(gathered.sum()),
+                library_ms=None, max_abs_err=max_err, steps=steps,
+                shape=f"{n} lanes, {steps} supersteps (the primary trace, "
+                      f"one launch)")
 
 
 def check_k2(state, motion, dev) -> dict:
@@ -521,7 +580,7 @@ def check_k3(eng, dev) -> dict:
 
 
 KERNELS = {
-    "K1": dict(name="fused_superstep",
+    "K1": dict(name="trace_supersteps",
                source="rvgrt_tpu_torch/csrc/superstep_kernel.cu",
                replaces="rvgrt_tpu/ops/superstep_kernel.py:82"),
     "K2": dict(name="warp_packed_bilinear",
@@ -575,7 +634,7 @@ def run(dev, cube: int, frames: int, warmup: int, profile: int = 0) -> dict:
     outs, state, ms, last = run_frames(eng, warmup + frames, dev)
     torch.cuda.synchronize()
     frame_counts = read_counts()
-    stats = dict(wavefront.stats)
+    stats = wavefront.read_stats()
     timed = sorted(ms[warmup:])
     check_image(outs[-1], (3 * HEIGHT, 3 * WIDTH, 3))
     hit_share = float((last.depth != 1.0).float().mean())
@@ -588,13 +647,18 @@ def run(dev, cube: int, frames: int, warmup: int, profile: int = 0) -> dict:
                             int(math.ceil(0.9 * len(timed))) - 1)],
         "ms_all": ms, "hit_share": hit_share,
         "launches": frame_counts, "traces": stats["traces"],
+        "k1_launches_per_frame": frame_counts["K1"] / (warmup + frames),
+        "traces_per_frame": stats["traces"] / (warmup + frames),
         "supersteps": stats["supersteps"],
         "supersteps_per_trace": stats["supersteps"] / max(stats["traces"],
                                                           1),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"frames: median {report['frames']['ms_median']:.1f} ms, "
-        f"p90 {report['frames']['ms_p90']:.1f} ms, hit {hit_share:.3f}")
+        f"p90 {report['frames']['ms_p90']:.1f} ms, hit {hit_share:.3f}, "
+        f"K1 launches {frame_counts['K1']} for {stats['traces']} traces")
     assert frame_counts["K1"] > 0 and frame_counts["K2"] > 0, frame_counts
+    # one launch per trace
+    assert frame_counts["K1"] == stats["traces"], (frame_counts, stats)
 
     # ---- the same path on a small world, GPU against CPU ----
     report["reference"] = phase_reference(dev)

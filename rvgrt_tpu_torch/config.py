@@ -280,7 +280,7 @@ class RenderConfig:
     # Unsupported combinations (volume z_edges, slim_carry) fall back
     # to the XLA body.
     # In this port the field has no effect and is kept only so that the
-    # two packages' configs match field for field: every superstep goes
+    # two packages' configs match field for field: every trace goes
     # through K1's wrapper (ops/superstep_kernel.py), the CUDA kernel on a
     # GPU and its plain version on the CPU.
     fused_superstep: bool = False

@@ -1,30 +1,69 @@
-// K1: one superstep of the wavefront tracer, gather included.
+// K1: the wavefront tracer's whole superstep loop, one launch per trace.
 //
-// Replaces the Pallas kernel rvgrt_tpu/ops/superstep_kernel.py::fused_superstep
-// (body _kernel, pl.pallas_call in fused_superstep), which ran
-// wavefront._superstep_update after an XLA-side gather.  Here one thread per
-// lane does the whole superstep: the pregather index
-// (wavefront._superstep_pregather), the clamped gather of the combined table
-// word, and the state update (wavefront._superstep_update, carry_tm=True):
-// a sphere step on the SDF byte (OOB -> position -100, converged at
-// dist <= 1, 100-step budget), an SDF probe/jump every sdf_probe_interval
-// DDA steps (major budget 5), or up to dda_substeps DDA steps inside the
-// 4x2x4 brick word.  The gather stayed outside the TPU kernel only because
-// Mosaic could not lower it.
+// Replaces the Pallas kernel rvgrt_tpu/ops/superstep_kernel.py::
+// fused_superstep (body _kernel, pl.pallas_call in fused_superstep), which
+// ran wavefront._superstep_update after an XLA-side gather, once per
+// superstep, inside the JAX tracer's device-side lax.while_loop
+// (rvgrt_tpu/trace/wavefront.py, `final = jax.lax.while_loop(...)`).  Here
+// that loop runs inside one launch: each lane runs its ray's supersteps to
+// retirement in registers, then takes the next ray from a device queue.
 //
-// The 11 state arrays are updated IN PLACE: each thread reads and writes
-// only its own lane, so no other thread sees a half-updated state.  A lane
-// in MISS or HIT is frozen and returns at once.  `live` (optional) is set to
-// 1 by every lane still marching after the update; the tracer reads it for
-// its convergence check instead of reducing the flags.
+// One superstep (superstep() below, the body the per-superstep kernel had):
+// the pregather index (wavefront._superstep_pregather), the clamped gather
+// of the combined table word, and the state update
+// (wavefront._superstep_update, carry_tm=True): a sphere step on the SDF
+// byte (OOB -> position -100, converged at dist <= 1, 100-step budget), an
+// SDF probe/jump every sdf_probe_interval DDA steps (major budget 5), or up
+// to dda_substeps DDA steps inside the 4x2x4 brick word.  A ray in MISS or
+// HIT is retired and frozen.
 //
-// What bounds it on the H100: bytes.  A live lane reads 10 state words and
-// 9 direction words, gathers 1 table word and writes 11 state words (~124 B)
-// for a few dozen ALU ops; at 1 024 000 primary lanes a superstep moves
-// ~0.13 GB at most.  Design: structure-of-arrays state so every load and
-// store is coalesced; retired lanes read only their flags word; the random
-// table gather is the one uncoalesced access.  Built with -fmad=false: every
-// multiply and add rounds separately, as in the reference's graphs.
+// The loop (trace_kernel): persistent threads after Aila and Laine,
+// "Understanding the Efficiency of Ray Traversal on GPUs" (HPG 2009).  The
+// grid fills the card once; each warp takes ray indices from one global
+// counter: __ballot_sync finds the lanes that need a ray, one atomicAdd per
+// warp takes that many indices, __shfl_sync hands out the base, and each
+// lane takes its rank in the ballot.  A lane whose ray retires takes the
+// next one, so a warp never waits for its slowest ray.  All 32 lanes stay
+// in the loop until the queue is empty and the warp's last ray has retired,
+// so every ballot and shuffle sees the whole warp.  (A variant in which one
+// atomic took a longer private run of rays per warp, to spare the counter,
+// was tried; its times were not kept, so whether it helps is open.)
+//
+// A lane loads its ray's state words (the cell and tMax words only for a
+// ray fetched in DDA: in SPHERE they are dead), 9 direction words and
+// sky_y once, runs the supersteps in registers until the ray retires or
+// has run `step_cap` supersteps, and writes back only the groups of state
+// words its supersteps changed; a ray retired at start costs one flags
+// read and writes nothing.  The only memory access per superstep is the
+// table gather, through the read-only path.
+//
+// Semantics of the host loop it replaces (and of the JAX while loop): the
+// trace runs in batches of k = check_every supersteps while any lane is
+// live and fewer than max_supersteps ran.  So a lane stops at retirement or
+// at step_cap = ceil(max_supersteps / k) * k, and the trace's `steps` is
+// max over lanes of k * ceil(r / k) for a lane that retired at superstep r
+// (0 for a ray retired at start) and step_cap for a lane still live there:
+// each warp reduces its lanes' values with __reduce_max_sync and one lane
+// folds it into scratch[1] with atomicMax.  scratch[0] is the ray counter;
+// the entry point zeroes both with cudaMemsetAsync on the stream, so a
+// CUDA-graph replay resets them too.
+//
+// What bounds it on the H100: bytes.  Over the 1 024 000-lane primary trace
+// of the 1024^3 world the state and direction words each lane's path reads
+// are read once and the changed words written once (~91 MB); the gathers
+// touch well under a million distinct table words, which stay in the 50 MB
+// L2.  Design: state in registers for the whole trace (the per-superstep
+// launches reloaded and stored it every superstep), the dead cell and tMax
+// words of a ray in SPHERE left unloaded, no host round trip between
+// supersteps, and the gather through __ldg.  It runs about ten times above
+// that bound; which of the candidates holds it there (each superstep's
+// gather waits on the one before, the lanes of a warp take different
+// branches, instruction rate) is not measured yet.  Built with -fmad=false: every multiply and add
+// rounds separately, as in the reference's graphs.
+//
+// ptxas for sm_90a (RVGRT_PTXAS_VERBOSE=1): trace_kernel uses 43 registers,
+// no stack frame and no spills; the register file then holds at most 5
+// blocks of 256 threads (40 of 64 warps) per SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +85,16 @@ constexpr int MJ_SH = 5, MJ_W = 3;
 constexpr int SP_SH = 8, SP_W = 7;
 constexpr int DD_SH = 15, DD_W = 8;
 constexpr int PR_SH = 23;
+
+// groups of state words a superstep may change
+constexpr unsigned DIRTY_POS = 1u;    // px, py, pz
+constexpr unsigned DIRTY_CELL = 2u;   // ix, iy, iz
+constexpr unsigned DIRTY_TM = 4u;     // tmx, tmy, tmz
+constexpr unsigned DIRTY_ITS = 8u;    // its
+constexpr unsigned DIRTY_FLAGS = 16u; // flags
+
+constexpr int BLOCK = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t get_field(uint32_t f, int sh, int w) {
   return (f >> sh) & ((1u << w) - 1u);
@@ -77,6 +126,21 @@ struct TraceParams {
 
 namespace {
 
+// One ray's carried state (trace/wavefront.py::STATE_KEYS) ...
+struct Ray {
+  float px, py, pz;
+  int ix, iy, iz;
+  uint32_t fl;
+  int its;
+  float tmx, tmy, tmz;
+};
+
+// ... and its direction invariants.
+struct Dir {
+  float dx, dy, dz, ddx, ddy, ddz;
+  int stx, sty, stz;
+};
+
 __device__ __forceinline__ int brick_word(const TraceParams& p, int x, int y,
                                           int z) {
   x &= p.size_x - 1;
@@ -98,38 +162,27 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void superstep_kernel(
-    TraceParams p, const uint32_t* __restrict__ table,
-    const float* __restrict__ sky_y, float* __restrict__ px,
-    float* __restrict__ py, float* __restrict__ pz, int* __restrict__ ix,
-    int* __restrict__ iy, int* __restrict__ iz, int* __restrict__ flags,
-    int* __restrict__ its, float* __restrict__ tmx, float* __restrict__ tmy,
-    float* __restrict__ tmz, const float* __restrict__ dxa,
-    const float* __restrict__ dya, const float* __restrict__ dza,
-    const float* __restrict__ ddxa, const float* __restrict__ ddya,
-    const float* __restrict__ ddza, const int* __restrict__ stxa,
-    const int* __restrict__ stya, const int* __restrict__ stza,
-    int* __restrict__ live, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t fl = (uint32_t)flags[i];
+// One superstep of a live ray (phase SPHERE or DDA), in place on `r`.
+// Returns the DIRTY_* groups it wrote.
+__device__ __forceinline__ unsigned superstep(
+    const TraceParams& p, const uint32_t* __restrict__ table, bool has_sky,
+    float sky, const Dir& d, Ray& r) {
+  uint32_t fl = r.fl;
   const int phase = (int)get_field(fl, PH_SH, PH_W);
-  if (phase >= PHASE_MISS) return;  // retired lanes are frozen
-
-  float x = px[i], y = py[i], z = pz[i];
-  const float dx = dxa[i], dy = dya[i], dz = dza[i];
+  const float x = r.px, y = r.py, z = r.pz;
+  const float dx = d.dx, dy = d.dy, dz = d.dz;
   const bool in_sphere = phase == PHASE_SPHERE;
-  if (in_sphere && sky_y != nullptr && dy >= 0.0f && y >= *sky_y) {
+  if (in_sphere && has_sky && dy >= 0.0f && y >= sky) {
     // above every solid voxel and not descending: can never hit
-    flags[i] = (int)set_field(fl, PH_SH, PH_W, PHASE_MISS);
-    return;
+    r.fl = set_field(fl, PH_SH, PH_W, PHASE_MISS);
+    return DIRTY_FLAGS;
   }
   const int dda_i = (int)get_field(fl, DD_SH, DD_W);
   const int probed = (int)((fl >> PR_SH) & 1u);
   const bool probe_turn = !in_sphere &&
                           ((dda_i & p.probe_mask) == p.probe_mask) &&
                           probed == 0;
-  int cix = ix[i], ciy = iy[i], ciz = iz[i];
+  int cix = r.ix, ciy = r.iy, ciz = r.iz;
   const int widx_bit = brick_word(p, cix, ciy, ciz);
 
   // ---------- THE gather (one per superstep) ----------
@@ -152,10 +205,10 @@ __global__ void superstep_kernel(
   } else {
     widx = widx_bit;
   }
-  const uint32_t word = table[clampi(widx, 0, p.table_len - 1)];
+  const uint32_t word = __ldg(table + clampi(widx, 0, p.table_len - 1));
   const int dist = (int)((word >> bytepos) & 0xFFu);
 
-  int lits = its[i];
+  unsigned dirty = DIRTY_FLAGS;
   if (in_sphere) {
     // ================= SPHERE phase (approximateCSDF) =================
     const int sphere_i = (int)get_field(fl, SP_SH, SP_W);
@@ -165,30 +218,35 @@ __global__ void superstep_kernel(
     const bool converged = !oob && dist <= 1;
     const bool march = !oob && !converged;
     const bool exhaust = march && sphere_i >= p.max_sphere_steps - 1;
+    float nx = x, ny = y, nz = z;
     if (march) {
       const float df = (float)dist;
-      x = x + dx * df;
-      y = y + dy * df;
-      z = z + dz * df;
+      nx = x + dx * df;
+      ny = y + dy * df;
+      nz = z + dz * df;
       fl = set_field(fl, SP_SH, SP_W, (uint32_t)(sphere_i + 1));
     }
-    if (oob) x = y = z = -100.0f;
-    px[i] = x;
-    py[i] = y;
-    pz[i] = z;
+    if (oob) nx = ny = nz = -100.0f;
+    if (march || oob) {
+      r.px = nx;
+      r.py = ny;
+      r.pz = nz;
+      dirty |= DIRTY_POS;
+    }
     if (oob || converged || exhaust) {
       // SPHERE -> DDA: floor the position, init tMax
-      const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
-      ix[i] = (int)fx;
-      iy[i] = (int)fy;
-      iz[i] = (int)fz;
-      tmx[i] = (stxa[i] > 0 ? (fx + 1.0f) - x : x - fx) * ddxa[i];
-      tmy[i] = (stya[i] > 0 ? (fy + 1.0f) - y : y - fy) * ddya[i];
-      tmz[i] = (stza[i] > 0 ? (fz + 1.0f) - z : z - fz) * ddza[i];
+      const float fx = floorf(nx), fy = floorf(ny), fz = floorf(nz);
+      r.ix = (int)fx;
+      r.iy = (int)fy;
+      r.iz = (int)fz;
+      r.tmx = (d.stx > 0 ? (fx + 1.0f) - nx : nx - fx) * d.ddx;
+      r.tmy = (d.sty > 0 ? (fy + 1.0f) - ny : ny - fy) * d.ddy;
+      r.tmz = (d.stz > 0 ? (fz + 1.0f) - nz : nz - fz) * d.ddz;
       fl = set_field(fl, PH_SH, PH_W, PHASE_DDA);
       fl = set_field(fl, MK_SH, MK_W, MASK_NONE);
       fl = set_field(fl, DD_SH, DD_W, 0);
       fl &= ~(1u << PR_SH);
+      dirty |= DIRTY_CELL | DIRTY_TM;
     }
   } else if (probe_turn) {
     // ================= DDA probe superstep =================
@@ -199,29 +257,30 @@ __global__ void superstep_kernel(
       const float t_proj = (cx - x) * dx + (cy - y) * dy + (cz - z) * dz;
       const float jump_len = t_proj + (float)dist * (float)p.sdf_coarseness;
       const int new_major = (int)get_field(fl, MJ_SH, MJ_W) + 1;
-      px[i] = x + jump_len * dx;
-      py[i] = y + jump_len * dy;
-      pz[i] = z + jump_len * dz;
+      r.px = x + jump_len * dx;
+      r.py = y + jump_len * dy;
+      r.pz = z + jump_len * dz;
       fl = set_field(fl, MJ_SH, MJ_W, (uint32_t)new_major);
       if (new_major >= p.max_major_iterations) {
         fl = set_field(fl, PH_SH, PH_W, PHASE_MISS);
-        lits += 1;
+        r.its += 1;
       } else {
         fl = set_field(set_field(fl, PH_SH, PH_W, PHASE_SPHERE), SP_SH, SP_W,
                        0);
-        lits += 2;  // the jumping DDA iteration + the major-loop re-entry
+        r.its += 2;  // the jumping DDA iteration + the major-loop re-entry
       }
-      its[i] = lits;
+      dirty |= DIRTY_POS | DIRTY_ITS;
     } else {
       fl |= 1u << PR_SH;
     }
   } else {
     // ================= DDA action superstep =================
-    const float ddx = ddxa[i], ddy = ddya[i], ddz = ddza[i];
-    const int stx = stxa[i], sty = stya[i], stz = stza[i];
-    float ltmx = tmx[i], ltmy = tmy[i], ltmz = tmz[i];
+    const float ddx = d.ddx, ddy = d.ddy, ddz = d.ddz;
+    const int stx = d.stx, sty = d.sty, stz = d.stz;
+    float ltmx = r.tmx, ltmy = r.tmy, ltmz = r.tmz;
     int lmask = (int)get_field(fl, MK_SH, MK_W);
     int ldda = dda_i;
+    int lits = r.its;
     bool hit = false, miss = false, stepped = false;
     const int nsub = p.dda_substeps > 1 ? p.dda_substeps : 1;
     for (int k = 0; k < nsub; ++k) {
@@ -260,41 +319,184 @@ __global__ void superstep_kernel(
         if (due || brick_word(p, cix, ciy, ciz) != widx_bit) break;
       }
     }
-    ix[i] = cix;
-    iy[i] = ciy;
-    iz[i] = ciz;
-    tmx[i] = ltmx;
-    tmy[i] = ltmy;
-    tmz[i] = ltmz;
-    its[i] = lits;
+    r.ix = cix;
+    r.iy = ciy;
+    r.iz = ciz;
+    r.tmx = ltmx;
+    r.tmy = ltmy;
+    r.tmz = ltmz;
+    r.its = lits;
     fl = set_field(set_field(fl, MK_SH, MK_W, (uint32_t)lmask), DD_SH, DD_W,
                    (uint32_t)ldda);
     if (stepped) fl &= ~(1u << PR_SH);
     if (hit) fl = set_field(fl, PH_SH, PH_W, PHASE_HIT);
     if (miss) fl = set_field(fl, PH_SH, PH_W, PHASE_MISS);
+    dirty |= DIRTY_CELL | DIRTY_TM | DIRTY_ITS;
   }
-  flags[i] = (int)fl;
-  if (live != nullptr && (int)get_field(fl, PH_SH, PH_W) < PHASE_MISS)
-    *live = 1;
+  r.fl = fl;
+  return dirty;
+}
+
+__global__ void __launch_bounds__(BLOCK) trace_kernel(
+    TraceParams p, const uint32_t* __restrict__ table,
+    const float* __restrict__ sky_y, float* __restrict__ px,
+    float* __restrict__ py, float* __restrict__ pz, int* __restrict__ ix,
+    int* __restrict__ iy, int* __restrict__ iz, int* __restrict__ flags,
+    int* __restrict__ its, float* __restrict__ tmx, float* __restrict__ tmy,
+    float* __restrict__ tmz, const float* __restrict__ dxa,
+    const float* __restrict__ dya, const float* __restrict__ dza,
+    const float* __restrict__ ddxa, const float* __restrict__ ddya,
+    const float* __restrict__ ddza, const int* __restrict__ stxa,
+    const int* __restrict__ stya, const int* __restrict__ stza, int n,
+    int step_cap, int check_every, int* __restrict__ scratch) {
+  const int lane = (int)(threadIdx.x & 31u);
+  const unsigned below = (1u << lane) - 1u;  // the lanes ranked before this
+  const bool has_sky = sky_y != nullptr;
+  const float sky = has_sky ? __ldg(sky_y) : 0.0f;
+
+  Ray r = {};
+  Dir d = {};
+  int ray = -1;       // this lane's ray, -1 while it has none
+  int count = 0;      // supersteps the ray ran in this launch
+  unsigned dirty = 0;
+  int steps = 0;      // this lane's share of the trace's `steps`
+  bool drained = false;  // the counter has passed n (warp-uniform)
+
+  while (true) {
+    // ---- hand the idle lanes the next rays: one atomic per warp ----
+    const unsigned idle = __ballot_sync(FULL, ray < 0);
+    if (idle != 0u && !drained) {
+      const int leader = __ffs(idle) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(scratch, __popc(idle));
+      base = __shfl_sync(FULL, base, leader);
+      drained = base + __popc(idle) >= n;
+      if (ray < 0) {
+        const int idx = base + __popc(idle & below);
+        if (idx < n) {
+          const uint32_t fl = (uint32_t)flags[idx];
+          if ((int)get_field(fl, PH_SH, PH_W) < PHASE_MISS) {
+            ray = idx;
+            count = 0;
+            dirty = 0;
+            r.px = px[idx];
+            r.py = py[idx];
+            r.pz = pz[idx];
+            r.fl = fl;
+            r.its = its[idx];
+            // in SPHERE the cell and tMax words are dead: the turn to DDA
+            // sets them before any superstep reads them
+            if ((int)get_field(fl, PH_SH, PH_W) == PHASE_DDA) {
+              r.ix = ix[idx];
+              r.iy = iy[idx];
+              r.iz = iz[idx];
+              r.tmx = tmx[idx];
+              r.tmy = tmy[idx];
+              r.tmz = tmz[idx];
+            }
+            d.dx = dxa[idx];
+            d.dy = dya[idx];
+            d.dz = dza[idx];
+            d.ddx = ddxa[idx];
+            d.ddy = ddya[idx];
+            d.ddz = ddza[idx];
+            d.stx = stxa[idx];
+            d.sty = stya[idx];
+            d.stz = stza[idx];
+          }
+          // a ray retired at start: nothing to run, nothing to write
+        }
+      }
+    }
+
+    // ---- one superstep of every lane that has a ray ----
+    if (__ballot_sync(FULL, ray >= 0) == 0u) {
+      if (drained) break;
+      continue;
+    }
+    if (ray >= 0) {
+      dirty |= superstep(p, table, has_sky, sky, d, r);
+      ++count;
+      const bool retired = (int)get_field(r.fl, PH_SH, PH_W) >= PHASE_MISS;
+      if (retired || count >= step_cap) {
+        const int i = ray;
+        if (dirty & DIRTY_POS) {
+          px[i] = r.px;
+          py[i] = r.py;
+          pz[i] = r.pz;
+        }
+        if (dirty & DIRTY_CELL) {
+          ix[i] = r.ix;
+          iy[i] = r.iy;
+          iz[i] = r.iz;
+        }
+        if (dirty & DIRTY_TM) {
+          tmx[i] = r.tmx;
+          tmy[i] = r.tmy;
+          tmz[i] = r.tmz;
+        }
+        if (dirty & DIRTY_ITS) its[i] = r.its;
+        if (dirty & DIRTY_FLAGS) flags[i] = (int)r.fl;
+        const int batches = (count + check_every - 1) / check_every;
+        steps = max(steps, retired ? batches * check_every : step_cap);
+        ray = -1;
+      }
+    }
+  }
+  const int warp_steps = __reduce_max_sync(FULL, steps);
+  if (lane == 0 && warp_steps > 0) atomicMax(scratch + 1, warp_steps);
+}
+
+// The number of trace_kernel blocks that fill the current device: resident
+// blocks per SM times SMs (cached per device).
+cudaError_t full_grid(int* grid) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cache = dev >= 0 && dev < 64;
+  if (cache && cached[dev] > 0) {
+    *grid = cached[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_kernel,
+                                                      BLOCK, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0 || sms <= 0) return cudaErrorLaunchOutOfResources;
+  *grid = per_sm * sms;
+  if (cache) cached[dev] = *grid;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int rvgrt_superstep(
+// scratch: 2 int32 on the device, [ray counter, steps]; zeroed here.
+extern "C" int rvgrt_trace(
     TraceParams p, const void* table, const void* sky_y, void* px, void* py,
     void* pz, void* ix, void* iy, void* iz, void* flags, void* its, void* tmx,
     void* tmy, void* tmz, const void* dx, const void* dy, const void* dz,
     const void* ddx, const void* ddy, const void* ddz, const void* stx,
-    const void* sty, const void* stz, void* live, int n, void* stream) {
-  if (n <= 0) return 0;
-  const int block = 256;
-  const int grid = (n + block - 1) / block;
-  superstep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+    const void* sty, const void* stz, int n, int step_cap, int check_every,
+    void* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || step_cap <= 0) return 0;
+  if (check_every < 1) check_every = 1;
+  int fill = 0;
+  err = full_grid(&fill);
+  if (err != cudaSuccess) return (int)err;
+  const int needed = (n + BLOCK - 1) / BLOCK;
+  const int grid = needed < fill ? needed : fill;
+  trace_kernel<<<grid, BLOCK, 0, st>>>(
       p, (const uint32_t*)table, (const float*)sky_y, (float*)px, (float*)py,
       (float*)pz, (int*)ix, (int*)iy, (int*)iz, (int*)flags, (int*)its,
       (float*)tmx, (float*)tmy, (float*)tmz, (const float*)dx,
       (const float*)dy, (const float*)dz, (const float*)ddx,
       (const float*)ddy, (const float*)ddz, (const int*)stx, (const int*)sty,
-      (const int*)stz, (int*)live, n);
+      (const int*)stz, n, step_cap, check_every, (int*)scratch);
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,30 @@
-"""K1: one tracer superstep, gather included (``csrc/superstep_kernel.cu``).
+"""K1: the tracer's whole superstep loop in one launch
+(``csrc/superstep_kernel.cu``).
 
-Replaces ``rvgrt_tpu/ops/superstep_kernel.py::fused_superstep``, the Pallas
-kernel that applied ``wavefront._superstep_update`` after an XLA gather.
-The CUDA kernel runs one thread per lane and does the pregather index, the
-clamped gather of the combined table and the update in one launch, updating
-the 11 state arrays in place.
+Replaces ``rvgrt_tpu/ops/superstep_kernel.py::fused_superstep`` (:82), the
+Pallas kernel that applied ``wavefront._superstep_update`` after an XLA
+gather, once per superstep of the JAX tracer's device-side while loop.
+The CUDA kernel runs that loop itself: persistent threads take rays from a
+device-side queue (one atomic counter), each lane runs its ray's supersteps
+(pregather index, clamped table gather, update) in registers until the ray
+retires or reaches its superstep budget, writes back the state words that
+changed, and takes the next ray.  One launch per trace, and no host read:
+the supersteps the trace ran come back as a 0-d device tensor.
 
-``fused_superstep`` launches the kernel when the table lies on a CUDA
-device and runs ``superstep_plain`` (the port's ``_superstep_pregather`` +
-clamped gather + ``_superstep_update``) when it lies on the CPU.  There is
-no fallback: a CUDA tensor the kernel does not take raises.  ``launches``
-counts kernel launches.
+What bounds it on the H100 is bytes: the state and direction words each
+lane's path reads, read once, and its changed state words written once (the
+distinct table words it gathers are few and stay in L2).  The design keeps
+the ray state in registers for the whole trace instead of reloading and
+storing it every superstep, skips the cell and tMax words of a ray fetched
+in SPHERE (dead until its turn to DDA sets them), and leaves the host out of
+the loop.
+
+``trace_supersteps`` is the main path's entry: it launches the kernel when
+the table lies on a CUDA device and runs ``trace_plain`` (the host loop of
+``superstep_plain``, the plain version of the whole trace) when it lies on
+the CPU.  ``fused_superstep`` is the same kernel with a budget of one
+superstep (the per-superstep check).  There is no fallback: a CUDA tensor
+the kernel does not take raises.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,21 +46,51 @@ def superstep_plain(cfg, rcfg, table, dirs, s, sky_y=None):
     return wf._superstep_update(cfg, rcfg, dirs, s, pre, word)
 
 
-def fused_superstep(cfg, rcfg, table, dirs, s, sky_y=None, live=None):
-    """Advance the state dict ``s`` by one superstep, in place.
+def trace_plain(cfg, rcfg, table, dirs, s, sky_y=None) -> torch.Tensor:
+    """The whole trace in plain PyTorch, in place on ``s``: batches of
+    ``steps_per_check`` supersteps while a lane is live and fewer than
+    ``max_supersteps`` ran (the JAX tracer's while loop).  Returns the
+    supersteps run, a 0-d int32 tensor on ``s``'s device."""
+    from rvgrt_tpu_torch.trace import wavefront as wf
+
+    k = max(rcfg.steps_per_check, 1)
+    step = 0
+    while step < rcfg.max_supersteps and wf.any_live(s["flags"]):
+        for _ in range(k):
+            s.update(superstep_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y))
+        step += k
+    return torch.tensor(step, dtype=torch.int32, device=s["flags"].device)
+
+
+def step_cap(rcfg) -> int:
+    """A lane's superstep budget in ``trace_plain``'s loop:
+    ``max_supersteps`` rounded up to whole batches of ``steps_per_check``."""
+    k = max(rcfg.steps_per_check, 1)
+    return max(-(-rcfg.max_supersteps // k) * k, 0)
+
+
+def trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=None) -> torch.Tensor:
+    """Run the whole trace on the state dict ``s``, in place; return the
+    supersteps it ran (0-d int32 tensor on the table's device, the same
+    value as ``trace_plain``'s).
 
     ``dirs`` = (dx, dy, dz, ddx, ddy, ddz, stx, sty, stz) per-lane
     invariants; ``s`` holds ``wavefront.STATE_KEYS``; ``sky_y`` an optional
-    0-d float32 tensor.  ``live``: optional (1,) int32 tensor, set to 1 when
-    a lane is still marching after this step (left alone otherwise)."""
+    0-d float32 tensor.  On a CUDA table: one kernel launch, no host read."""
     if table.device.type == "cpu":
-        from rvgrt_tpu_torch.trace import wavefront as wf
+        return trace_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y)
+    return _launch(cfg, rcfg, table, dirs, s, sky_y, step_cap(rcfg),
+                   max(rcfg.steps_per_check, 1), "trace_supersteps")
 
+
+def fused_superstep(cfg, rcfg, table, dirs, s, sky_y=None) -> None:
+    """Advance the state dict ``s`` by one superstep, in place: the kernel
+    with a budget of one superstep per lane on a CUDA table,
+    ``superstep_plain`` on a CPU one."""
+    if table.device.type == "cpu":
         s.update(superstep_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y))
-        if live is not None and wf.any_live(s["flags"]):
-            live.fill_(1)
         return
-    _launch(cfg, rcfg, table, dirs, s, sky_y, live)
+    _launch(cfg, rcfg, table, dirs, s, sky_y, 1, 1, "fused_superstep")
 
 
 @functools.lru_cache(maxsize=16)
@@ -74,14 +118,15 @@ def _params(cfg, rcfg):
     return _lib.trace_params_type()(**vals)
 
 
-def _launch(cfg, rcfg, table, dirs, s, sky_y, live):
+def _launch(cfg, rcfg, table, dirs, s, sky_y, cap: int, check_every: int,
+            what: str) -> torch.Tensor:
     from rvgrt_tpu_torch.ops import _lib
     from rvgrt_tpu_torch.trace.wavefront import STATE_KEYS
 
     global launches
     dev = table.device
     if dev.type != "cuda":
-        raise ValueError(f"fused_superstep: table on {dev}")
+        raise ValueError(f"{what}: table on {dev}")
     _lib.require(table, "table", torch.int32, dev,
                  (cfg.num_words + cfg.sdf_num_cells // 4,))
     n = s["flags"].numel()
@@ -97,13 +142,13 @@ def _launch(cfg, rcfg, table, dirs, s, sky_y, live):
     if sky_y is not None:
         _lib.require(sky_y, "sky_y", f32, dev, ())
         sky_ptr = sky_y.data_ptr()
-    live_ptr = None
-    if live is not None:
-        _lib.require(live, "live", i32, dev, (1,))
-        live_ptr = live.data_ptr()
-    fn = _lib.library().rvgrt_superstep
-    launches += 1
+    # [ray counter, steps], zeroed on the stream by the C entry point
+    scratch = torch.empty(2, dtype=i32, device=dev)
+    fn = _lib.library().rvgrt_trace
+    if n > 0 and cap > 0:
+        launches += 1
     _lib.check(fn(_params(cfg, rcfg), table.data_ptr(), sky_ptr,
                   *(s[k].data_ptr() for k in STATE_KEYS),
-                  *(a.data_ptr() for a in dirs), live_ptr, n,
-                  _lib.stream_ptr(dev)), "fused_superstep")
+                  *(a.data_ptr() for a in dirs), n, cap, check_every,
+                  scratch.data_ptr(), _lib.stream_ptr(dev)), what)
+    return scratch[1]

@@ -7,20 +7,23 @@ Each superstep gathers ONE word from a combined table (4x2x4 occupancy
 bricks, then the SDF four cells per word), so sphere-stepping, DDA-stepping
 and SDF-probing lanes share one gather.
 
-On a CUDA device each superstep is one launch of kernel K1
-(``ops/superstep_kernel.py``): one thread per lane does the gather index,
-the gather and the state update, in place.  On the CPU the same superstep
-is ``_superstep_pregather`` + the clamped gather + ``_superstep_update``
-below, the counterparts of the JAX functions of the same names.
+On a CUDA device a whole trace is ONE launch of kernel K1
+(``ops/superstep_kernel.py``): persistent threads take rays from a
+device-side queue and run each ray's supersteps (the gather index, the
+gather and the state update) in registers until it retires or reaches its
+superstep budget.  The host reads nothing back: no live flag, no ``steps``
+(a 0-d device tensor).  On the CPU the same trace is the host loop of
+``_superstep_pregather`` + the clamped gather + ``_superstep_update`` below,
+the counterparts of the JAX functions of the same names.
 ``RenderConfig.fused_superstep`` chooses nothing here: there is one path.
 
 Tiles: the JAX tracer cuts 2-D ray batches into ``lax.map`` row tiles so a
-tile's loop stops when ITS rays retire.  Here all lanes run in one flat
-launch per superstep until every lane has retired (or ``max_supersteps``).
-A retired lane is frozen - no branch of the superstep touches a lane in
-MISS or HIT - so every lane's ``hit/px/py/pz/nx/ny/nz/uv_u/uv_v/its/t``
-is the same as with tiles.  Only ``steps`` differs: it counts the
-supersteps of the whole launch, not of the lane's TPU tile.
+tile's loop stops when ITS rays retire.  Here all lanes form one flat
+trace, run until every lane has retired (or ``max_supersteps``).  A retired
+lane is frozen - no branch of the superstep touches a lane in MISS or HIT
+- so every lane's ``hit/px/py/pz/nx/ny/nz/uv_u/uv_v/its/t`` is the same as
+with tiles.  Only ``steps`` differs: it counts the supersteps of the whole
+trace (in batches of ``steps_per_check``), not of the lane's TPU tile.
 
 Semantics are the reference's (``raytracing_functions.cu:85-202``):
 iteration budgets 5 x (100 sphere + 200 DDA), the exact ``its`` counter,
@@ -64,9 +67,20 @@ _SP_SH, _SP_W = 8, 7        # sphere step counter
 _DD_SH, _DD_W = 15, 8       # DDA step counter
 _PR_SH = 23                 # probed flag
 
-#: trace calls and supersteps run since the last reset (on a CUDA device
-#: the supersteps are K1's launches); read by chip_smoke.py
+#: trace calls and supersteps run since the last reset; ``supersteps`` sums
+#: each trace's 0-d ``steps`` tensor on its device, so keeping it costs no
+#: host read.  Read it with ``read_stats``.
 stats = {"traces": 0, "supersteps": 0}
+
+
+def reset_stats() -> None:
+    stats.update(traces=0, supersteps=0)
+
+
+def read_stats() -> dict:
+    """``stats`` as ints: one host read, which waits for the device."""
+    return {"traces": stats["traces"],
+            "supersteps": int(stats["supersteps"])}
 
 #: carried per-lane state, in kernel argument order
 STATE_KEYS = ("px", "py", "pz", "ix", "iy", "iz", "flags", "its",
@@ -95,7 +109,7 @@ class TraceResult(NamedTuple):
     its: torch.Tensor   # iteration count (i32) - the Mrays/s work metric
     t: torch.Tensor     # ray parameter of the hit (f32; 0 on miss)
     exit_dir: torch.Tensor | int = 0  # volume-sharded mode only (0 here)
-    # supersteps the launch ran (i32, same value for every lane)
+    # supersteps the trace ran (i32, same value for every lane)
     steps: torch.Tensor | int = 0
     degraded: torch.Tensor | int = 0  # two-phase respite only (False here)
 
@@ -425,35 +439,25 @@ def start_state(cfg: WorldConfig, ox, oy, oz, dx, dy, dz, t0,
 
 
 def run_supersteps(cfg: WorldConfig, rcfg: RenderConfig, table, dirs, s,
-                   sky_y=None) -> int:
+                   sky_y=None) -> torch.Tensor:
     """Advance ``s`` in place until every lane has retired or
-    ``max_supersteps`` ran, checking every ``steps_per_check`` supersteps
-    (``wavefront.py``'s while loop).  Returns the supersteps run.
+    ``max_supersteps`` ran, in batches of ``steps_per_check`` supersteps
+    (``wavefront.py``'s while loop).  Returns the supersteps run, a 0-d
+    int32 tensor on the table's device.
 
-    Every superstep goes through K1's wrapper, which launches the kernel
-    on a CUDA device and runs its plain version on the CPU, whatever
-    ``rcfg.fused_superstep`` says; the last superstep of each check sets
-    the ``live`` flag that the check reads."""
+    One call of K1's wrapper, whatever ``rcfg.fused_superstep`` says: one
+    kernel launch and no host read on a CUDA device, the plain loop on the
+    CPU."""
     from rvgrt_tpu_torch.ops import superstep_kernel
 
-    k = max(rcfg.steps_per_check, 1)
-    live = torch.zeros(1, dtype=_I32, device=s["flags"].device)
-    step = 0
-    alive = any_live(s["flags"])
-    while alive and step < rcfg.max_supersteps:
-        live.zero_()
-        for i in range(k):
-            superstep_kernel.fused_superstep(
-                cfg, rcfg, table, dirs, s, sky_y=sky_y,
-                live=live if i == k - 1 else None)
-        step += k
-        alive = bool(live.item())
+    steps = superstep_kernel.trace_supersteps(cfg, rcfg, table, dirs, s,
+                                              sky_y=sky_y)
     stats["traces"] += 1
-    stats["supersteps"] += step
-    return step
+    stats["supersteps"] = stats["supersteps"] + steps
+    return steps
 
 
-def _payload(s, dirs, ox, oy, oz, step: int) -> TraceResult:
+def _payload(s, dirs, ox, oy, oz, steps) -> TraceResult:
     """The hit payload reconstructed from the final state."""
     dx, dy, dz, ddx, ddy, ddz, stx, sty, stz = dirs
     # ---------------- post-loop hit payload ----------------
@@ -501,5 +505,5 @@ def _payload(s, dirs, ox, oy, oz, step: int) -> TraceResult:
         nx=nx, ny=ny, nz=nz,
         uv_u=torch.where(hit, uvu, 0.0), uv_v=torch.where(hit, uvv, 0.0),
         its=s["its"], t=t_out, exit_dir=torch.zeros_like(s["its"]),
-        steps=torch.full_like(s["its"], step),
+        steps=steps.expand_as(s["its"]),
         degraded=torch.zeros_like(hit))

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
-K1 (tracer superstep), K2 (history warp) and K3 (SDF min-plus pass) at small
-shapes: a 64^3 world built by the port, random rays, a random packed
-history.  Every test here needs a CUDA GPU and skips without one (a CUDA
-kernel has no interpret mode).  The file imports neither jax nor the JAX
+K1 (the tracer: a whole trace in one launch, and one superstep per launch),
+K2 (history warp) and K3 (SDF min-plus pass) at small shapes: a 64^3 world
+built by the port, random rays, a random packed history.  Every test here
+needs a CUDA GPU and skips without one (a CUDA kernel has no interpret
+mode).  The file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed; the suite's
 ``conftest.py`` sets up JAX, so skip it there:
 
@@ -102,35 +103,132 @@ def test_superstep_kernel_matches_plain(cuda, worlds, cadence):
     assert 10 < steps < 600
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_trace_launches_k1_whatever_the_setting(cuda, worlds, fused):
-    """On the GPU every superstep of ``trace`` is one K1 launch, with
-    ``fused_superstep`` off (the config's default) as with it on, and the
-    traced fields equal the CPU trace's."""
-    ecfg = _ecfg(fused_superstep=fused, **CADENCES["bench"])
-    rng = np.random.default_rng(11)
-    shape = (24, 32)
+def _rays(shape, seed, retired_at_start=False):
+    """Random rays in the 64^3 world as numpy arrays (ox, oy, oz, dx, dy,
+    dz, t0); ``retired_at_start``: every ray starts outside the world
+    (x = -3, t0 = 0)."""
+    rng = np.random.default_rng(seed)
     o = rng.uniform(2.0, 62.0, (3,) + shape).astype(np.float32)
     d = rng.normal(size=(3,) + shape).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True).astype(np.float32)
     t0 = rng.uniform(0.0, 6.0, shape).astype(np.float32)
-    res = {}
+    if retired_at_start:
+        o[0] = -3.0
+        t0[:] = 0.0
+    return [np.ascontiguousarray(a) for a in (*o, *d, t0)]
+
+
+#: the cases of test_trace_launches_k1_whatever_the_setting: render
+#: overrides on the bench cadence, the ray shape, and the trace's steps on
+#: both devices where the case fixes it
+TRACE_CASES = {
+    "unfused": dict(render=dict(fused_superstep=False), shape=(24, 32)),
+    "fused": dict(render=dict(fused_superstep=True), shape=(24, 32)),
+    # a budget that cuts rays: batches of 4, so every lane stops at 16
+    "capped": dict(render=dict(max_supersteps=13, steps_per_check=4),
+                   shape=(24, 32), steps=16),
+    # not a multiple of 32: the last warp's queue is ragged
+    "n1000": dict(render={}, shape=(1000,)),
+    "retired_at_start": dict(render={}, shape=(24, 32), retired=True,
+                             steps=0),
+}
+
+
+@pytest.mark.parametrize("case", list(TRACE_CASES))
+def test_trace_launches_k1_whatever_the_setting(cuda, worlds, case):
+    """On the GPU a whole ``trace`` is ONE K1 launch, with
+    ``fused_superstep`` off (the config's default) as with it on, at a cut
+    superstep budget and at a ragged ray count; the traced fields and
+    ``steps`` equal the CPU trace's (the plain loop), and the superstep
+    stats agree."""
+    spec = TRACE_CASES[case]
+    ecfg = _ecfg(**{**CADENCES["bench"], **spec["render"]})
+    arrays = _rays(spec["shape"], 11, spec.get("retired", False))
+    res, ran = {}, {}
     for w in worlds:
         dev = w.bits.device
-        rays = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in (*o, *d, t0)]
-        n0, s0 = superstep_kernel.launches, wavefront.stats["supersteps"]
+        rays = [torch.from_numpy(a).to(dev) for a in arrays]
+        n0 = superstep_kernel.launches
+        wavefront.reset_stats()
         res[dev.type] = wavefront.trace(None, None, ecfg.world, ecfg.render,
                                         *rays, table=w.trace_table,
                                         sky_y=w.sky_y)
-        ran = wavefront.stats["supersteps"] - s0
-        assert ran > 0
-        assert superstep_kernel.launches - n0 == (ran if dev.type == "cuda"
-                                                  else 0)
+        stats = wavefront.read_stats()
+        assert stats["traces"] == 1
+        ran[dev.type] = stats["supersteps"]
+        assert superstep_kernel.launches - n0 == (dev.type == "cuda")
+    assert ran["cuda"] == ran["cpu"]
+    if "steps" in spec:
+        assert ran["cpu"] == spec["steps"]
+    else:
+        assert ran["cpu"] > 0
+    assert torch.equal(res["cuda"].steps.cpu(), res["cpu"].steps)
     for f in ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v",
               "its", "t"):
         assert _bits_equal(getattr(res["cuda"], f).cpu(),
                            getattr(res["cpu"], f)), f
+    if spec.get("retired"):
+        # the kernel writes no word of a ray retired at start
+        w = worlds[0]
+        s, dirs = wavefront.start_state(
+            ecfg.world, *(torch.from_numpy(a.reshape(-1)).to(cuda)
+                          for a in arrays), sky_y=w.sky_y)
+        before = {k: v.clone() for k, v in s.items()}
+        steps = superstep_kernel.trace_supersteps(
+            ecfg.world, ecfg.render, w.trace_table, dirs, s, sky_y=w.sky_y)
+        assert int(steps) == 0
+        for k in wavefront.STATE_KEYS:
+            assert _bits_equal(s[k], before[k]), k
+
+
+@pytest.mark.parametrize("cadence", list(CADENCES))
+def test_trace_supersteps_matches_plain_state(cuda, worlds, cadence):
+    """The one-launch trace leaves all 11 state arrays bit-equal to the
+    plain loop's, and a second trace over the retired state changes no
+    word and runs 0 supersteps."""
+    ecfg = _ecfg(**CADENCES[cadence])
+    w = worlds[0]
+    rays = [torch.from_numpy(a).to(cuda) for a in _rays((48 * 64,), 7)]
+    s, dirs = wavefront.start_state(ecfg.world, *rays, sky_y=w.sky_y)
+    sp = {k: v.clone() for k, v in s.items()}
+    want = superstep_kernel.trace_plain(ecfg.world, ecfg.render,
+                                        w.trace_table, dirs, sp,
+                                        sky_y=w.sky_y)
+    got = superstep_kernel.trace_supersteps(ecfg.world, ecfg.render,
+                                            w.trace_table, dirs, s,
+                                            sky_y=w.sky_y)
+    assert int(got) == int(want) > 10
+    for k in wavefront.STATE_KEYS:
+        assert _bits_equal(s[k], sp[k]), k
+    before = {k: v.clone() for k, v in s.items()}
+    again = superstep_kernel.trace_supersteps(ecfg.world, ecfg.render,
+                                              w.trace_table, dirs, s,
+                                              sky_y=w.sky_y)
+    assert int(again) == 0
+    for k in wavefront.STATE_KEYS:
+        assert _bits_equal(s[k], before[k]), k
+
+
+def test_trace_makes_no_host_read(cuda, worlds):
+    """``wavefront.trace`` on a CUDA table runs under
+    ``set_sync_debug_mode("error")``: no host read anywhere on its path."""
+    ecfg = _ecfg(**CADENCES["bench"])
+    w = worlds[0]
+    rays = [torch.from_numpy(a).to(cuda) for a in _rays((24, 32), 3)]
+    # a first trace builds and loads the kernel library outside the check
+    wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                    table=w.trace_table, sky_y=w.sky_y)
+    n0 = superstep_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                              table=w.trace_table, sky_y=w.sky_y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert superstep_kernel.launches == n0 + 1
+    assert bool(res.hit.any())
 
 
 def test_warp_kernel_matches_plain(cuda):

@@ -4,7 +4,8 @@ Random rays through a 64^3 world: ``hit/px/py/pz/nx/ny/nz/uv_u/uv_v/its/t``
 bit-exact against ``rvgrt_tpu``'s ``trace`` at the reference cadence and at
 the bench cadence, with ``fused_superstep`` off and on (the port ignores
 the field: every superstep goes through K1's wrapper, which on the CPU runs
-K1's plain version, so both settings must give the JAX result).  One
+K1's plain version, so both settings must give the JAX result), and at the
+bench cadence with a superstep budget that cuts rays mid-flight.  One
 superstep of K1's plain version is also held against the JAX XLA body (the
 oracle of the Pallas kernel) on real mid-trace states.  ``steps`` is not
 compared: it counts the TPU's row-tile cost.  The JAX side runs without FMA
@@ -31,6 +32,10 @@ CADENCES = {
 }
 FIELDS = ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v", "its",
           "t")
+# the bench cadence with a superstep budget that cuts rays: batches of 4,
+# so a lane stops at retirement or after 16 supersteps
+CAPPED = ref.with_render(ref.with_render(WORLD, **CADENCES["bench"]),
+                         max_supersteps=13, steps_per_check=4)
 SHAPE = (48, 64)
 
 
@@ -84,6 +89,9 @@ def jax_ref():
             jobs.append(("ref_superstep", dict(spec=_spec(cad), world=world,
                                                state=s, dirs=dirs)))
             keys.append(("superstep", cad, i))
+    jobs.append(("ref_trace", dict(spec=CAPPED, world=world, rays=_rays(),
+                                   shape=SHAPE)))
+    keys.append(("trace", "capped"))
     out = dict(zip(keys, ref.run(jobs)))
     out["world"] = world
     return out
@@ -104,6 +112,31 @@ def test_trace_bit_exact(jax_ref, cadence, fused):
         got = getattr(res, f).numpy()
         assert got.shape == SHAPE
         np.testing.assert_array_equal(got, want[f], err_msg=f)
+
+
+def test_trace_capped_budget_bit_exact(jax_ref):
+    """A budget that stops rays mid-flight: every lane of the port's trace
+    stops where the JAX tiles' loops stop it, bit for bit on the traced
+    fields; the port's ``steps`` is the rounded-up budget."""
+    ecfg = ref.make_ecfg(tcfg, CAPPED)
+    w = engine.world_from_numpy(jax_ref["world"], device="cpu")
+    rays = [torch.from_numpy(a.reshape(SHAPE)) for a in _rays()]
+    res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                          table=w.trace_table, sky_y=w.sky_y)
+    want = jax_ref[("trace", "capped")]
+    # the budget does cut rays: fewer hits than the uncut trace
+    assert want["hit"].sum() < jax_ref[("trace", "bench")]["hit"].sum()
+    assert bool((res.steps == 16).all())
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(res, f).numpy(), want[f],
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("budget,k,cap", [(2048, 1, 2048), (13, 4, 16),
+                                          (12, 4, 12), (1, 2, 2), (0, 4, 0)])
+def test_step_cap_rounds_up_to_whole_batches(budget, k, cap):
+    rcfg = tcfg.RenderConfig(max_supersteps=budget, steps_per_check=k)
+    assert superstep_kernel.step_cap(rcfg) == cap
 
 
 @pytest.mark.parametrize("which", [0, 1, 2], ids=["start", "step3",

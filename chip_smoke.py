@@ -25,11 +25,13 @@ is printed.
    frames;
 5. kernels: K1, K2 and K3 against their plain versions on the inputs the
    main path gave them (the primary trace's start state, the last frame's
-   history and motion, the world's distance field), with their times, the
-   least time the card could take (``bound_ms``, from this run's data) and
-   the main path's launch counts.  K1 is held against the plain loop twice:
-   superstep by superstep (one launch each, a budget of one superstep) and
-   as the whole primary trace in one launch.
+   history and motion, the inputs of the world build's four min-plus
+   passes), with their times, the least time the card could take
+   (``bound_ms``, from this run's data) and the main path's launch counts.
+   K1 is held against the plain loop twice: superstep by superstep (one
+   launch each, a budget of one superstep) and as the whole primary trace
+   in one launch.  K3 is also held at the 2048^3 world's coarse shape
+   (1024^3, the world's first-pass field tiled 2x2x2).
 
 The kernel checks come after the frames because they take the main path's
 own inputs.  Every launch counter is set to 0 just before each main-path
@@ -538,45 +540,157 @@ def check_k2(state, motion, dev) -> dict:
                 max_abs_err=err, shape=f"({hh}, {hw}) u32 history")
 
 
-def check_k3(eng, dev) -> dict:
-    """K3's two passes on the world's own first-pass distance field."""
+#: int32 lane operations per tap pair (one output, one offset) of K3's
+#: packed loop: a thread does two DPX instructions per offset (packed min of
+#: the pair, packed add-and-min into acc) for its two columns
+#: (csrc/sdf_kernels.cu, ``Acc<R, false>::tap``)
+K3_OPS_PER_TAP = 1
+
+
+def k3_tap_floor(d, best, axis: int, cap: int):
+    """The tap pairs K3's loop must run for each output of the pass over
+    ``d`` along ``axis``, from the min-plus squares ``best``: (Σ_exit) every
+    offset off in [1, cap] with off^2 < a = min(best, cap^2), since a 0 at
+    any such offset would change the output; (Σ) of those, the offsets
+    where a neighbour d[i -+ off] is below cap: where both are at cap or
+    outside the volume the candidate is >= cap^2 >= a, which the loop knows
+    from its near-row counts without the tap.  Returns (Σ, Σ_exit) per
+    output, as uint8."""
+    import torch
+
+    a = torch.clamp(best, max=cap * cap)
+    n = d.shape[axis]
+    shape = list(d.shape)
+    shape[axis] = n + 2 * cap
+    padded = torch.full(shape, 255, dtype=torch.uint8, device=d.device)
+    padded.narrow(axis, cap, n).copy_(d)
+    near = torch.zeros(d.shape, dtype=torch.uint8, device=d.device)
+    exit_ = torch.zeros_like(near)
+    for off in range(1, cap + 1):
+        need = a > off * off
+        exit_ += need
+        m = torch.minimum(padded.narrow(axis, cap - off, n),
+                          padded.narrow(axis, cap + off, n))
+        near += need & (m < cap)
+    return near, exit_
+
+
+def k3_pass(d, axis: int, cap: int, dev, launch, calls: int = 5) -> dict:
+    """One K3 pass through ``launch(d, axis, cap)`` against the plain
+    version, bit for bit, with its graph-timed ms and its bound from this
+    input: bytes (one u8 read and one u8 write a cell) or the int32
+    operations of the taps the loop must run (Σ, ``k3_tap_floor``),
+    whichever is larger.  The operations figure (``algorithm_floor_ms``) is
+    this loop's floor, not the function's: a linear-time lower-envelope
+    transform runs no such taps, so where it sets ``bound_ms`` the bound is
+    this algorithm's.  Returns the stats and the kernel's output."""
     import torch
 
     from rvgrt_tpu_torch.ops import sdf_kernels as k3
-    from rvgrt_tpu_torch.world import sdf, voxel_grid
 
-    cfg = eng.ecfg.world
-    cap = cfg.sdf_max_dist
-    coarse = voxel_grid.coarse_occupancy(eng.world.bits, cfg)
-    d = sdf._axis_distance_1d(coarse, axis=2, cap=cap)
-    ms, event_ms, plain_ms = {}, {}, {}
-    for axis in (1, 0):
-        got = k3.minconv_pass(d, axis=axis, cap=cap)
-        want = k3.minconv_pass_plain(d, axis=axis, cap=cap)
-        assert torch.equal(got, want), f"K3 differs on axis {axis}"
-        ms[axis] = graph_ms(lambda: k3.minconv_pass(d, axis, cap), dev,
-                            calls=5)
-        event_ms[axis] = timed_ms(lambda _: k3.minconv_pass(d, axis, cap),
-                                  dev)
-        plain_ms[axis] = timed_ms(
-            lambda _: k3.minconv_pass_plain(d, axis, cap), dev, reps=5,
-            warmup=1)
-        d = got  # the axis-0 pass reads the axis-1 pass's output
+    got = launch(d, axis, cap)
+    best = k3.min_squares_plain(d, axis, cap)
+    want = torch.clamp_max(k3.isqrt(best), cap).to(torch.uint8)
+    same = torch.equal(got, want)
+    diff = 0 if same else int((got.int() - want.int()).abs().max())
+    assert same, f"K3 differs from its plain version on axis {axis}, " \
+        f"cap {cap}, shape {tuple(d.shape)}: max abs {diff}"
     cells = d.numel()
-    # per output: cap offset pairs x (pair min, multiply-add, running min)
-    # plus the isqrt fix-up; one u8 read and one u8 write
-    ops = cells * (3 * cap + 8)
-    bytes_ = 2 * cells
-    bound = max(ops / INT32_OPS_PER_S, bytes_ / HBM_BYTES_PER_S) * 1e3
-    return dict(ms=(ms[0] + ms[1]) / 2,
-                event_ms=(event_ms[0] + event_ms[1]) / 2,
-                plain_ms=(plain_ms[0] + plain_ms[1]) / 2,
-                ms_by_axis={"1": ms[1], "0": ms[0]},
-                plain_ms_by_axis={"1": plain_ms[1], "0": plain_ms[0]},
-                bound_ms=bound, bound_by="operations" if ops
-                / INT32_OPS_PER_S >= bytes_ / HBM_BYTES_PER_S else "bytes",
-                library_ms=None, max_abs_err=0.0,
-                shape=f"u8 {tuple(d.shape)}, cap {cap}, per pass")
+    taps, taps_exit = (int(t.sum(dtype=torch.int64))
+                       for t in k3_tap_floor(d, best, axis, cap))
+    del best, want
+    t_ops = taps * K3_OPS_PER_TAP / INT32_OPS_PER_S
+    t_bytes = 2 * cells / HBM_BYTES_PER_S
+    ms = graph_ms(lambda: launch(d, axis, cap), dev, calls=calls)
+    return dict(shape=f"u8 {tuple(d.shape)}", axis=axis, cap=cap, ms=ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                algorithm_floor_ms=t_ops * 1e3, bound_bytes_ms=t_bytes * 1e3,
+                taps=taps, taps_per_cell=taps / cells, taps_exit=taps_exit,
+                taps_exit_per_cell=taps_exit / cells,
+                mean_distance=int(got.sum(dtype=torch.int64)) / cells), got
+
+
+def capture_k3_inputs(eng) -> list:
+    """The inputs of every K3 launch of the world build, as (input, axis,
+    cap): ``build_sdf``'s two passes and ``extend_sdf_far``'s two, taken at
+    ``minconv_pass`` while the SDF phase runs again on the world's bits."""
+    from rvgrt_tpu_torch.driver import engine
+    from rvgrt_tpu_torch.ops import sdf_kernels as k3
+
+    real = k3.minconv_pass
+    got = []
+
+    def hook(d, axis, cap):
+        got.append((d, axis, cap))
+        return real(d, axis, cap)
+
+    k3.minconv_pass = hook
+    try:
+        engine._sdf_phase_fn(eng.world.bits, eng.ecfg.world)
+    finally:
+        k3.minconv_pass = real
+    return got
+
+
+def check_k3(eng, dev) -> dict:
+    """K3 at every shape it meets, bit for bit against its plain version:
+    the world build's four passes (``build_sdf``: u8 512^3, cap 64;
+    ``extend_sdf_far``: 128^3, cap 66 at the headline) on their own inputs,
+    and the 2048^3 world's coarse shape (1024^3, cap 64), made by tiling
+    the world's first-pass field 2x2x2.  ``ms``, ``event_ms``, ``plain_ms``
+    and ``bound_ms`` are the means of ``build_sdf``'s two passes."""
+    import torch
+
+    from rvgrt_tpu_torch.ops import sdf_kernels as k3
+
+    inputs = capture_k3_inputs(eng)
+    assert len(inputs) == 4, [(tuple(d.shape), a, c) for d, a, c in inputs]
+    names = ("build_sdf", "build_sdf", "extend_sdf_far", "extend_sdf_far")
+    passes = []
+    for name, (d, axis, cap) in zip(names, inputs):
+        stats, _ = k3_pass(d, axis, cap, dev, k3.minconv_pass,
+                           calls=5 if d.numel() > 2 ** 24 else 20)
+        if name == "build_sdf":
+            stats["event_ms"] = timed_ms(
+                lambda _: k3.minconv_pass(d, axis, cap), dev)
+            stats["plain_ms"] = timed_ms(
+                lambda _: k3.minconv_pass_plain(d, axis, cap), dev, reps=5,
+                warmup=1)
+        passes.append(dict(path=name, **stats))
+        log(f"K3 {name}: {passes[-1]}")
+    # the 2048^3 world's coarse grid: axis 1, then axis 0 on its output
+    d, _, cap = inputs[0]
+    d = d.repeat(2, 2, 2)
+    for axis in (1, 0):
+        stats, d = k3_pass(d, axis, cap, dev, k3.minconv_pass, calls=2)
+        passes.append(dict(path="2048^3 coarse grid (tiled)", **stats))
+        log(f"K3 2048^3 coarse grid: {passes[-1]}")
+    del d
+    main = passes[:2]
+
+    def mean(key):
+        return statistics.fmean(p[key] for p in main)
+
+    return dict(ms=mean("ms"), event_ms=mean("event_ms"),
+                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+                bound_by="operations" if mean("algorithm_floor_ms")
+                >= mean("bound_bytes_ms") else "bytes", library_ms=None,
+                max_abs_err=0.0, taps=[p["taps"] for p in main],
+                taps_exit=[p["taps_exit"] for p in main],
+                mean_distance=[p["mean_distance"] for p in main],
+                bound_counted=f"per pass: the larger of 2 B a cell at "
+                f"{HBM_BYTES_PER_S:.3g} B/s and taps x {K3_OPS_PER_TAP} "
+                f"int32 lane op at {INT32_OPS_PER_S:.4g} op/s; taps (Σ) = "
+                f"sum over outputs of #{{off in [1, cap]: off^2 < "
+                f"min(acc, cap^2) and min(d[i-off], d[i+off]) < cap}}, acc "
+                f"the plain version's min-plus square; taps_exit drops the "
+                f"second condition; the operations figure "
+                f"(algorithm_floor_ms) is this loop's floor, not the "
+                f"function's: a linear-time lower-envelope transform runs no "
+                f"such taps",
+                shape=f"{main[0]['shape']}, cap {main[0]['cap']}, per pass "
+                      f"(build_sdf, axes 1 and 0)", passes=passes)
 
 
 KERNELS = {
@@ -714,6 +828,7 @@ def main(argv=None) -> int:
             "on a GPU")
         return 1
     sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -726,10 +841,11 @@ def main(argv=None) -> int:
     report = run(torch.device("cuda"), args.cube, args.frames, args.warmup,
                  profile=args.profile)
     report["card"] = card
+    report["wall_s"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
-    print(json.dumps({k: report[k] for k in ("build", "frames")}),
+    print(json.dumps({k: report[k] for k in ("build", "frames", "wall_s")}),
           flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)

@@ -251,21 +251,62 @@ def test_warp_kernel_matches_plain(cuda):
     assert float((got - want).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("axis", [0, 1])
-def test_minconv_kernel_matches_plain(cuda, worlds, axis):
-    """K3 on random distances and on the world's real first-pass field."""
-    rng = np.random.default_rng(5 + axis)
-    d = rng.integers(0, 65, (8, 40, 24)).astype(np.uint8)
-    d[rng.random(d.shape) < 0.9] = 64
-    cfg = tcfg.WorldConfig().with_cube(6)
-    coarse = voxel_grid.coarse_occupancy(worlds[0].bits, cfg)
-    real = sdf._axis_distance_1d(coarse, axis=2, cap=cfg.sdf_max_dist)
-    for vol in (torch.from_numpy(d).to(cuda), real):
-        n0 = sdf_kernels.launches
-        got = sdf_kernels.minconv_pass(vol, axis=axis, cap=64)
-        assert sdf_kernels.launches == n0 + 1
-        want = sdf_kernels.minconv_pass_plain(vol, axis=axis, cap=64)
-        assert torch.equal(got, want)
+#: the cases of test_minconv_kernel_matches_plain: (Z, Y, X) shape, axis,
+#: cap, input.  "full" is full-range u8, "sparse" mostly cap with a few
+#: near distances, "world" the 64^3 world's own first-pass field.  Caps up
+#: to 181 run the kernel's u16 loop, 182 and 255 its 32-bit loop; a block
+#: covers 64 columns and 128 rows.
+MINCONV_CASES = {
+    "world_axis1": ((32, 32, 32), 1, 64, "world"),
+    "world_axis0": ((32, 32, 32), 0, 64, "world"),
+    "cap1": ((3, 150, 100), 1, 1, "full"),
+    "cap64": ((3, 150, 100), 1, 64, "full"),
+    "cap66": ((3, 150, 100), 1, 66, "full"),
+    "cap182": ((3, 150, 100), 1, 182, "full"),
+    "cap255": ((3, 150, 100), 1, 255, "full"),
+    "cap255_axis0": ((150, 3, 40), 0, 255, "full"),
+    "n_below_cap": ((4, 40, 70), 1, 64, "sparse"),
+    "n1": ((5, 1, 33), 1, 64, "full"),
+    "inner1": ((6, 45, 1), 1, 66, "sparse"),
+    "inner_ragged": ((2, 300, 130), 1, 64, "sparse"),
+    "odd_inner": ((3, 50, 7), 1, 182, "full"),
+    "axis0_inner_yx": ((40, 12, 10), 0, 64, "sparse"),
+    "odd_address": ((4, 33, 20), 1, 64, "full"),
+    # rows of 16-byte multiples: the staging's 16-byte loads
+    "cap64_inner_x16": ((3, 150, 96), 1, 64, "full"),
+    "cap255_inner_x16": ((2, 90, 48), 1, 255, "full"),
+    "cap182_axis0_x16": ((70, 4, 8), 0, 182, "full"),
+}
+
+
+@pytest.mark.parametrize("case", list(MINCONV_CASES))
+def test_minconv_kernel_matches_plain(cuda, request, case):
+    """K3 equals its plain version bit for bit, in one launch."""
+    shape, axis, cap, kind = MINCONV_CASES[case]
+    if kind == "world":
+        cfg = tcfg.WorldConfig().with_cube(6)
+        coarse = voxel_grid.coarse_occupancy(
+            request.getfixturevalue("worlds")[0].bits, cfg)
+        vol = sdf._axis_distance_1d(coarse, axis=2, cap=cfg.sdf_max_dist)
+        assert tuple(vol.shape) == shape
+    else:
+        rng = np.random.default_rng(sum(map(ord, case)))
+        d = rng.integers(0, 256, shape).astype(np.uint8)
+        if kind == "sparse":
+            d = np.minimum(d, cap)
+            d[rng.random(shape) < 0.9] = cap
+        vol = torch.from_numpy(d).to(cuda)
+        if case == "odd_address":  # a contiguous view one byte in
+            buf = torch.empty(vol.numel() + 1, dtype=torch.uint8,
+                              device=cuda)
+            buf[1:].copy_(vol.reshape(-1))
+            vol = buf[1:].view(shape)
+            assert vol.data_ptr() % 2 == 1
+    n0 = sdf_kernels.launches
+    got = sdf_kernels.minconv_pass(vol, axis=axis, cap=cap)
+    assert sdf_kernels.launches == n0 + 1
+    want = sdf_kernels.minconv_pass_plain(vol, axis=axis, cap=cap)
+    assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -274,6 +315,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sdf_kernels.minconv_pass(torch.zeros(4, 4, 4, device=cuda), 2, 64)
     with pytest.raises(ValueError):
         sdf_kernels.minconv_pass(torch.zeros(4, 4, 4, device=cuda), 1, 64)
+    with pytest.raises(ValueError):
+        sdf_kernels.minconv_pass(
+            torch.zeros(4, 4, 4, dtype=torch.uint8, device=cuda), 1, 256)
     with pytest.raises(ValueError):
         warp_kernels.warp_packed_bilinear(
             torch.zeros(8, 8, dtype=torch.int32, device=cuda),

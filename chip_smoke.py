@@ -11,42 +11,57 @@ ends the run with a traceback and a non-zero exit code, and no result line
 is printed.
 
 1. card: the GPU's name and power limit, as nvidia-smi gives them;
-2. world build (main path, part 1): ``Engine(ecfg)`` at the headline world,
-   1024^3; the SDF's min-plus passes run kernel K3;
-3. frames (main path, part 2): 2 warm-up and 8 timed frames at the
-   ``bench.py`` headline operating point, each ``Engine.step`` (split
-   dispatch: GI update -> base frame with its G-buffer -> GI composite, at
-   1280x800, every trace one launch of K1, with no host read between its
-   supersteps) and ``temporal_upscale(..., warp_taps="pallas")`` to
-   3840x2400 (K2);
-4. reference: the same path on a 64^3 world at 128x80, on the GPU and on
-   the CPU, where every kernel is its plain PyTorch version (the CPU test
-   suite holds those against the JAX package): equal worlds, >= 50 dB
-   frames;
-5. kernels: K1, K2 and K3 against their plain versions on the inputs the
-   main path gave them (the primary trace's start state, the last frame's
-   history and motion, the inputs of the world build's four min-plus
-   passes), with their times, the least time the card could take
-   (``bound_ms``, from this run's data) and the main path's launch counts.
-   K1 is held against the plain loop twice: superstep by superstep (one
-   launch each, a budget of one superstep) and as the whole primary trace
-   in one launch.  K3 is also held at the 2048^3 world's coarse shape
-   (1024^3, the world's first-pass field tiled 2x2x2).
+2. world build (main path): ``Engine(ecfg)`` at the headline world, 1024^3;
+   the SDF's min-plus passes run kernel K3;
+3. headline (main path): ``bench.py``'s frames, through
+   ``driver/frame_loop.py``: 2 warm-up and 12 timed frames along its
+   interactive path (thirds of fast pan, slow look and dwell), each at the
+   rate the motion-adaptive scheduler picks (checkerboard or quarter; the
+   mix {checker 4, quarter 8} is asserted), a GI window every 2nd frame with
+   the two-phase straggler respite (budget 12), the base frame with its
+   G-buffer at 1280x800 on the rate-cut grid, the GI composite, the expand
+   and ``temporal_upscale(valid=..., warp_taps="pallas")`` to 3840x2400.
+   Every trace is one launch of K1 (a two-phase trace two, one a phase)
+   with no host read inside it; the history warp is K2;
+4. config-4 (main path): the same loop at 1920x1080 native on the same
+   world, temporal reconstruction at scale 1, 2 warm-up and 6 timed frames;
+5. full rate (main path): the viewer's path, ``Engine.step`` +
+   ``temporal_upscale``, 2 warm-up and 4 timed frames;
+6. respite cost: one GI window with straggler budget 12 and with 0, timed
+   as the main path pays for it (CUDA events around ``update_gi``);
+7. reference: on a 64^3 world at 128x80, on the GPU and on the CPU (where
+   every kernel is its plain PyTorch version, which the CPU test suite holds
+   against the JAX package): the full-rate path for 3 frames and the frame
+   loop for 6 (checkerboard and quarter frames, 16 384-cell GI windows that
+   engage the respite); worlds and GI words bit-exact, >= 50 dB and exact
+   hit classification on every base and reconstructed frame;
+8. kernels: K1, K2 and K3 against their plain versions on the inputs the
+   main path gives them, with their times, the least time the card could
+   take (``bound_ms``, from this run's data) and the main path's launch
+   counts.  K1 on the checkerboard primary trace (superstep by superstep,
+   and whole in one launch; its row's times and bound), the quarter primary
+   trace, a GI window's respite phase 1 (budget 12) and phase 2, config-4's
+   checkerboard and quarter primary traces and the full-rate path's primary
+   trace, each bit-exact and graph-timed; K2 at the headline's (2400,
+   3840) and config-4's (1080, 1920) histories; K3 at the world build's
+   four passes and at the 2048^3 world's coarse shape.
 
-The kernel checks come after the frames because they take the main path's
-own inputs.  Every launch counter is set to 0 just before each main-path
-phase and read just after it, so the kernel checks' launches are not
-counted.  Times are CUDA-event medians on the card: a kernel's ``ms`` (and
-the library call's) is the device time of a CUDA-graph replay of its
-launches, ``event_ms`` and ``plain_ms`` time the Python call itself, host
-included, as the main path pays it.  The last lines are the
-JSON kernel table, ``{"kernels": [...]}``, and
-``{"ok": true, "device": {...}}``.
+Launch accounting: ``wavefront.stats["traces"]`` counts each phase of a
+two-phase trace as a trace, so on every path K1 launches == traces.
+Every launch counter is set to 0 just before each main-path phase and read
+just after it, so the launches of the checks are not counted; the kernel
+line sums each kernel's launches over the build and the three frame paths.
+Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
+library call's) is the device time of a CUDA-graph replay of its launches,
+``event_ms`` and ``plain_ms`` time the Python call itself, host included,
+as the main path pays it.  The last lines are the JSON kernel table,
+``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.
 
-The options shrink the run for debugging (``--cube 8 --frames 2``); the
-defaults are the headline configuration.  ``--profile N`` adds N frames
-under ``torch.profiler`` at the end: the device's busy time and idle share
-per frame and the kernels that took the most device time.
+The options shrink the run for debugging (``--cube 8 --frames 3``); the
+defaults are the headline configuration.  ``--profile N`` adds, at the
+end, N headline frames and 2 full-rate frames, each under its own
+``torch.profiler``: per frame its tier, the device's busy time, idle share
+and launches, and the kernels that took the most device time.
 """
 
 from __future__ import annotations
@@ -69,26 +84,27 @@ HBM_BYTES_PER_S = 3.35e12
 # the 67 TFLOP/s float32 figure, one operation per lane per clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-# the headline frame of bench.py (its defaults, gi_straggler_budget 0)
+# the 64^3 reference pose
 REF_POSE = dict(position=(30.0, 44.0, 60.0), yaw=math.pi + 0.25,
                 pitch=-math.pi - 0.18)
-PAN_RAD_PER_FRAME = 0.05  # bench.py's interactive fast-pan leg
-WIDTH, HEIGHT = 1280, 800  # render resolution; displayed at 3x
+WIDTH, HEIGHT = 1280, 800  # headline render resolution; displayed at 3x
+C4_WIDTH, C4_HEIGHT = 1920, 1080  # config-4, native
+GI_BUDGET = 12  # bench.py's gi_straggler_budget
 
 
 def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
-def headline_config(cube: int, width: int, height: int):
-    """bench.py's headline operating point, built the way bench.py builds
-    it (``dataclasses.replace`` on the defaults)."""
+def headline_config(cube: int, width: int, height: int, scale: int = 3):
+    """bench.py's operating point, built the way bench.py builds it
+    (``dataclasses.replace`` on the defaults), at ``scale`` x display."""
     from rvgrt_tpu_torch.config import (EngineConfig, LightingConfig,
                                         RenderConfig, WorldConfig)
 
     rcfg = dataclasses.replace(
         RenderConfig(), width=width, height=height,
-        display_width=3 * width, display_height=3 * height,
+        display_width=scale * width, display_height=scale * height,
         prepass_divisor=8, prepass_cascade=4, shadow_site_divisor=4,
         steps_per_check=1, dda_substeps=6, sdf_probe_interval=16,
         dist_bias=4.0, fused_superstep=True, gi_res_divisor=16)
@@ -96,7 +112,26 @@ def headline_config(cube: int, width: int, height: int):
         world=WorldConfig().with_cube(cube), render=rcfg,
         lighting=dataclasses.replace(LightingConfig(), soft_shadows=True,
                                      soft_shadow_stride=2),
-        gi_straggler_budget=0, gi_init_mode="heightfield")
+        gi_straggler_budget=GI_BUDGET, gi_init_mode="heightfield",
+        gi_init_stride=(2, 2))
+
+
+def native_config(ecfg, width: int, height: int):
+    """bench.py's config-4 point: the same settings at ``width x height``
+    native (scale-1 reconstruction)."""
+    return dataclasses.replace(ecfg, render=dataclasses.replace(
+        ecfg.render, width=width, height=height, display_width=width,
+        display_height=height))
+
+
+def reference_loop_config():
+    """The 64^3 frame-loop reference: the headline settings at 128x80,
+    with ``gi_coarseness=2`` so the GI grid (32^3 cells) holds 16 384-cell
+    windows, enough rays for the respite to engage (4 x 4096)."""
+    ecfg = headline_config(6, 128, 80)
+    return dataclasses.replace(
+        ecfg, world=dataclasses.replace(ecfg.world, gi_coarseness=2),
+        gi_rays_per_frame=16384)
 
 
 def kernel_modules():
@@ -171,9 +206,14 @@ def graph_ms(fn, dev, calls: int = 1, reps: int = 7, warmup: int = 2,
     return statistics.median(times)
 
 
-def place_camera(eng) -> float:
+def p90(values) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(math.ceil(0.9 * len(v))) - 1)]
+
+
+def headline_pose(eng) -> dict:
     """bench.py's placement: 12 voxels above the terrain top of the world's
-    centre column, looking down 0.5 along +x.  Returns the camera y."""
+    centre column, looking down 0.5 along +x, as a Character pose."""
     import numpy as np
     import torch
 
@@ -189,19 +229,108 @@ def place_camera(eng) -> float:
     cam_y = min(top + 12.0, w.size_y - 2.0)
     fwd = np.array([0.87, -0.5, 0.0], np.float32)
     fwd /= np.linalg.norm(fwd)
-    ch = eng.character
-    ch.position = np.array([cx, cam_y, cz], np.float32)
     # Character.direction = (sin(yaw) cos(pitch), -sin(pitch),
     # -cos(yaw) cos(pitch)); pitch in (-pi - pi/2, -pi) looks down
-    ch.pitch = -math.pi - math.asin(float(-fwd[1]))
-    ch.yaw = -math.pi / 2.0
-    return cam_y
+    return dict(position=(float(cx), cam_y, float(cz)), yaw=-math.pi / 2.0,
+                pitch=-math.pi - math.asin(float(-fwd[1])))
 
 
-def run_frames(eng, n: int, dev, state=None, time_s=None):
-    """``n`` frames of the main path: Engine.step, then the 3x temporal
-    upscale through the warp kernel.  Returns (outputs, state, per-frame
-    ms, last frame outputs)."""
+def make_character(ecfg, pose: dict):
+    """A Character at ``pose`` for ``ecfg``'s render and display sizes,
+    with the 9-phase jitter of the temporal accumulator (bench.py's)."""
+    import numpy as np
+
+    from rvgrt_tpu_torch.scene.camera import Character, phase_jitter_sequence
+
+    r = ecfg.render
+    return Character(display_width=r.display_width,
+                     display_height=r.display_height, render_width=r.width,
+                     render_height=r.height,
+                     position=np.asarray(pose["position"], np.float32),
+                     yaw=pose["yaw"], pitch=pose["pitch"],
+                     jitter_sequence=phase_jitter_sequence(3))
+
+
+def expected_mix(frames: int) -> dict:
+    """The tiers of ``frames`` timed frames along the interactive path: its
+    fast third at checkerboard rate, the slow and dwell thirds at quarter
+    rate (bench.py's thresholds: above 1.25 % of the width a frame, with
+    hysteresis, and below 0.75 %)."""
+    third = max(frames // 3, 1)
+    return {"checker": third, "quarter": frames - third}
+
+
+def run_loop(world, ecfg, pose: dict, frames: int, dev, scale: int,
+             time_s: float = 1.0) -> dict:
+    """``frame_loop.WARMUP`` + ``frames`` frames of
+    ``driver/frame_loop.py`` along bench.py's interactive path from
+    ``pose``, each timed with CUDA events (host included) on a GPU.
+    Returns the loop, the rates, each frame's result and ms."""
+    from rvgrt_tpu_torch.driver import frame_loop
+    from rvgrt_tpu_torch.utils.timer import Timer
+
+    cams = frame_loop.path_cameras(make_character(ecfg, pose),
+                                   frame_loop.path_yaws(frames),
+                                   time_s=time_s, device=dev)
+    rates = frame_loop.rate_schedule([c for c, _ in cams], ecfg)
+    loop = frame_loop.FrameLoop(world, ecfg, scale=scale)
+    results, ms = [], []
+    for i, (_, cam) in enumerate(cams):
+        with Timer("frame", verbose=False, device=dev) as t:
+            results.append(loop.frame(i, cam, rates[i]))
+        ms.append(t.elapsed_ms)
+    return dict(loop=loop, cams=cams, rates=rates, results=results, ms=ms)
+
+
+def loop_report(run: dict, counts: dict, stats: dict) -> dict:
+    """Frame times overall, per tier and per GI/no-GI frame over the timed
+    frames, the tier mix, and the launches and traces per frame."""
+    from rvgrt_tpu_torch.driver.frame_loop import WARMUP
+
+    rates, ms = run["rates"][WARMUP:], run["ms"][WARMUP:]
+    gi = [r.gi_ran for r in run["results"]][WARMUP:]
+    n = len(run["ms"])
+
+    def summary(vals):
+        return {"n": len(vals), "ms_median": statistics.median(vals),
+                "ms_p90": p90(vals)}
+
+    tiers = {t: summary([m for m, r in zip(ms, rates) if r == t])
+             for t in sorted(set(rates))}
+    by_gi = {k: summary([m for m, g in zip(ms, gi) if g == (k == "gi")])
+             for k in ("gi", "no_gi") if (k == "gi") in gi}
+    loop = run["loop"]
+    return {"warmup": WARMUP, "timed": len(ms), "ms_median":
+            statistics.median(ms), "ms_p90": p90(ms), "ms_all": run["ms"],
+            "rates_all": run["rates"], "tier_mix": {t: v["n"] for t, v in
+                                                    tiers.items()},
+            "per_tier": tiers, "per_gi": by_gi, "launches": counts,
+            "traces": stats["traces"], "respites": stats["respites"],
+            "gi_windows": loop.gi_windows,
+            "straggler_overflow": int(loop.overflow),
+            "k1_launches_per_frame": counts["K1"] / n,
+            "k2_launches_per_frame": counts["K2"] / n,
+            "traces_per_frame": stats["traces"] / n,
+            "supersteps": stats["supersteps"],
+            "supersteps_per_trace": stats["supersteps"]
+            / max(stats["traces"], 1)}
+
+
+def check_launches(counts: dict, stats: dict, frames: int,
+                   gi_windows: int) -> None:
+    """Every K1 launch is a trace (a two-phase trace is two), the GI
+    windows' traces ran two-phase (sun and bounce, budget > 0 and enough
+    rays at this world), and every frame warped its history once."""
+    assert counts["K1"] > 0 and counts["K1"] == stats["traces"], \
+        (counts, stats)
+    assert counts["K2"] == frames, (counts, frames)
+    assert stats["respites"] == 2 * gi_windows, (stats, gi_windows)
+
+
+def run_full_rate(eng, n: int, dev, state=None, time_s=None):
+    """``n`` frames of the viewer's path: Engine.step (every frame at full
+    rate, GI every frame), then the 3x temporal upscale through K2.
+    Returns (outputs, state, per-frame ms, last frame outputs)."""
     import torch
 
     from rvgrt_tpu_torch.scene.camera import InputState
@@ -211,8 +340,8 @@ def run_frames(eng, n: int, dev, state=None, time_s=None):
     r = eng.ecfg.render
     if state is None:
         state = temporal.init_state(r.height, r.width, device=dev)
-    pan = InputState(mouse_dx=PAN_RAD_PER_FRAME
-                     / eng.character.sensitivity)
+    # bench.py's fast pan, 0.05 rad a frame
+    pan = InputState(mouse_dx=0.05 / eng.character.sensitivity)
     outs, ms = [], []
     for i in range(n):
         with Timer("frame", verbose=False, device=dev) as t:
@@ -228,11 +357,10 @@ def run_frames(eng, n: int, dev, state=None, time_s=None):
     return outs, state, ms, out
 
 
-def profile_frames(eng, state, dev, n: int, top: int = 15) -> dict:
-    """``n`` more main-path frames under ``torch.profiler``: the host wall
-    time, the device's busy time (the sum of its kernels' times: one
-    stream, so they never overlap), the idle share, and the kernels that
-    took the most device time."""
+def profiled(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: (host wall ms, the device's busy
+    ms - the sum of its kernels' times: one stream, so they never overlap -,
+    device launches, the profiler's device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -241,23 +369,58 @@ def profile_frames(eng, state, dev, n: int, top: int = 15) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_frames(eng, n, dev, state=state)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     assert busy_ms > 0, "the profiler saw no device time"
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    return {"frames": n, "wall_ms_per_frame": wall_ms / n,
-            "device_busy_ms_per_frame": busy_ms / n,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_launches_per_frame": sum(e.count for e in kernels) / n,
-            "device_kernels": len(kernels),
-            "top": [{"kernel": e.key[:90], "calls_per_frame": e.count / n,
-                     "device_ms_per_frame":
-                         e.self_device_time_total / 1e3 / n}
-                    for e in kernels[:top]]}
+    return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
+
+
+def profile_frames(eng, pose, dev, n: int, top: int = 15) -> dict:
+    """``n`` headline frames (the frame loop from ``pose``) and 2 frames of
+    the full-rate path, each under its own ``torch.profiler``: per frame
+    the host wall time, the device's busy time, the idle share and the
+    device launches; over the loop's frames, the kernels that took the
+    most device time."""
+    import collections
+
+    from rvgrt_tpu_torch.driver import frame_loop
+
+    ecfg = eng.ecfg
+    yaws = frame_loop.path_yaws(max(n - frame_loop.WARMUP, 1))
+    cams = frame_loop.path_cameras(make_character(ecfg, pose), yaws,
+                                   time_s=1.0, device=dev)
+    rates = frame_loop.rate_schedule([c for c, _ in cams], ecfg)
+    loop = frame_loop.FrameLoop(eng.world, ecfg, scale=3)
+    eng.character = make_character(ecfg, pose)
+    busy = collections.Counter()
+    calls = collections.Counter()
+
+    def one(fn, what: dict) -> dict:
+        wall_ms, busy_ms, launches, kernels = profiled(fn)
+        if what["path"] == "loop":
+            for e in kernels:
+                busy[e.key[:90]] += e.self_device_time_total / 1e3
+                calls[e.key[:90]] += e.count
+        return dict(what, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                    device_idle_share=1.0 - busy_ms / wall_ms,
+                    device_launches=launches)
+
+    frames = [one(lambda i=i, cam=cam: loop.frame(i, cam, rates[i]),
+                  dict(path="loop", rate=rates[i],
+                       gi=i % frame_loop.GI_CADENCE == 0))
+              for i, (_, cam) in enumerate(cams)]
+    frames += [one(lambda: run_full_rate(eng, 1, dev),
+                   dict(path="full_rate", rate="full", gi=True))
+               for _ in range(2)]
+    m = len(cams)
+    return {"frames": frames,
+            "top": [{"kernel": k, "calls_per_frame": calls[k] / m,
+                     "device_ms_per_frame": v / m}
+                    for k, v in busy.most_common(top)]}
 
 
 def check_image(img, shape) -> None:
@@ -273,13 +436,45 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
 
 
+def respite_cost(eng, dev, offsets) -> dict:
+    """One GI window at each of ``offsets`` with straggler budget 12 and
+    with 0, each the median CUDA-event time of ``update_gi`` (host
+    included, as the main path pays for it) over 7 calls after 2; and, at
+    the first offset, the device's busy time and launches of one call
+    under ``torch.profiler``, which split the cost into device and host."""
+    from rvgrt_tpu_torch.gi import update as gi_update
+
+    w = eng.world
+    out = {}
+    for budget in (GI_BUDGET, 0):
+        ec = dataclasses.replace(eng.ecfg, gi_straggler_budget=budget)
+
+        def window(off, ec=ec):
+            return gi_update.update_gi(w.gi, w.bits, w.sdf, w.atlas, ec, 0,
+                                       off, sky_y=w.sky_y,
+                                       table=w.trace_table)
+
+        for off in offsets:
+            out[f"budget{budget}_offset{off}_ms"] = timed_ms(
+                lambda _: window(off), dev)
+        wall, busy, launches, _ = profiled(lambda: window(offsets[0]))
+        out[f"budget{budget}_offset{offsets[0]}_profiled"] = dict(
+            wall_ms=wall, device_busy_ms=busy, device_launches=launches)
+    out["window_cells"] = eng.ecfg.gi_window
+    return out
+
+
 def phase_reference(dev) -> dict:
-    """The main path on a 64^3 world at 128x80 on the GPU and on the CPU."""
+    """The full-rate path and the frame loop on a 64^3 world at 128x80, on
+    the GPU and on the CPU."""
     import numpy as np
 
+    from rvgrt_tpu_torch.core import u32
     from rvgrt_tpu_torch.driver import engine
     from rvgrt_tpu_torch.scene.camera import phase_jitter_sequence
+    from rvgrt_tpu_torch.trace import wavefront
 
+    # the full-rate path, 3 frames
     ecfg = headline_config(6, 128, 80)
     runs = {}
     for d in (dev, "cpu"):
@@ -288,7 +483,7 @@ def phase_reference(dev) -> dict:
         eng.character.position = np.asarray(REF_POSE["position"], np.float32)
         eng.character.yaw = REF_POSE["yaw"]
         eng.character.pitch = REF_POSE["pitch"]
-        outs, _, _, last = run_frames(eng, 3, d, time_s=1.0)
+        outs, _, _, last = run_full_rate(eng, 3, d, time_s=1.0)
         runs[str(d)] = (engine.world_to_numpy(eng.world), outs, last)
     (wg, og, lg), (wc, oc, lc) = runs[str(dev)], runs["cpu"]
     for k in wc:
@@ -298,32 +493,101 @@ def phase_reference(dev) -> dict:
     hit_equal = bool(((lg.depth == 1.0).cpu() == (lc.depth == 1.0)).all())
     assert min(db) >= 50.0 and base_db >= 50.0, (db, base_db)
     assert hit_equal, "hit classification differs between GPU and CPU"
-    return {"world_bit_exact": True, "upscaled_psnr_db": db,
+    full = {"world_bit_exact": True, "upscaled_psnr_db": db,
             "base_color_psnr_db": base_db, "hit_classification_equal": True}
 
+    # the frame loop, 6 frames, respite engaged
+    ecfg = reference_loop_config()
+    loops = {}
+    for d in (dev, "cpu"):
+        world = engine.build_world(ecfg, verbose=False, device=d)
+        wavefront.reset_stats()
+        run = run_loop(world, ecfg, REF_POSE, 4, d, scale=3)
+        loops[str(d)] = (engine.world_to_numpy(world), run,
+                         wavefront.read_stats())
+    (wg, rg, sg), (wc, rc, sc) = loops[str(dev)], loops["cpu"]
+    for k in wc:
+        np.testing.assert_array_equal(wg[k], wc[k], err_msg=k)
+    assert rg["rates"] == rc["rates"]
+    assert {"checker", "quarter"} <= set(rg["rates"]), rg["rates"]
+    assert sg["respites"] == sc["respites"] == 2 * rg["loop"].gi_windows > 0
+    gi_g, gi_c = u32.to_numpy(rg["loop"].gi), u32.to_numpy(rc["loop"].gi)
+    np.testing.assert_array_equal(gi_g, gi_c, err_msg="GI words")
+    assert (gi_g != wc["gi"]).any(), "the GI windows changed nothing"
+    base_db, up_db = [], []
+    for a, b in zip(rg["results"], rc["results"]):
+        assert bool((a.hit.cpu() == b.hit).all()), \
+            "hit classification differs between GPU and CPU"
+        base_db.append(psnr(a.out.color, b.out.color))
+        up_db.append(psnr(a.image, b.image))
+    assert min(base_db) >= 50.0 and min(up_db) >= 50.0, (base_db, up_db)
+    return {"full_rate": full, "frame_loop": {
+        "world_bit_exact": True, "gi_words_bit_exact": True,
+        "rates": rg["rates"], "respites": sg["respites"],
+        "straggler_overflow": [int(rg["loop"].overflow),
+                               int(rc["loop"].overflow)],
+        "base_color_psnr_db": base_db, "upscaled_psnr_db": up_db,
+        "hit_classification_equal": True}}
 
-def capture_primary(eng, dev):
-    """The primary trace's start state and direction invariants, taken at
-    its K1 call during a re-render of the current pose."""
+
+def capture_k1(fn) -> list:
+    """Every K1 call ``fn`` makes, as (rcfg, start state, directions),
+    cloned before the launch."""
     from rvgrt_tpu_torch.ops import superstep_kernel
 
-    r = eng.ecfg.render
-    n = r.width * r.height
     real = superstep_kernel.trace_supersteps
-    got = {}
+    got = []
 
     def hook(cfg, rcfg, table, dirs, s, sky_y=None, **kw):
-        if "s" not in got and s["flags"].numel() == n:
-            got["s"] = {k: v.clone() for k, v in s.items()}
-            got["dirs"] = tuple(a.clone() for a in dirs)
+        got.append((rcfg, {k: v.clone() for k, v in s.items()},
+                    tuple(a.clone() for a in dirs)))
         return real(cfg, rcfg, table, dirs, s, sky_y=sky_y, **kw)
 
     superstep_kernel.trace_supersteps = hook
     try:
-        eng.render_at(eng.character.ray_jitter_ndc(), time_s=1.0)
+        fn()
     finally:
         superstep_kernel.trace_supersteps = real
-    return got["s"], got["dirs"]
+    return got
+
+
+def k1_primary(fn, lanes: int) -> tuple:
+    """The primary trace among the K1 calls of ``fn``, a frame: the first
+    call at ``lanes`` lanes (the water pair after it has the same count)."""
+    return next(c for c in capture_k1(fn) if c[1]["flags"].numel() == lanes)
+
+
+def k1_inputs(eng, cam, ecfg4, cam4) -> dict:
+    """The main paths' K1 inputs: the primary trace of a checkerboard and
+    of a quarter-rate frame of the headline at ``cam`` and of config-4
+    (``ecfg4``) at ``cam4``, the full-rate path's primary trace at the
+    engine's pose (``Engine.render_at``), and the bounce rays' respite
+    phases 1 and 2 of the headline's GI window at offset 0 (the calls are
+    sun phase 1, sun phase 2, bounce phase 1, bounce phase 2)."""
+    from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.render import pipeline
+
+    ec, w = eng.ecfg, eng.world
+    out = {}
+    for pre, e, c in (("", ec, cam), ("c4_", ecfg4, cam4)):
+        r = e.render
+        for rate, n, kw in (("checker", r.height * (r.width // 2),
+                             dict(checker_parity=1)),
+                            ("quarter", (r.height // 2) * (r.width // 2),
+                             dict(quarter_phase=3))):
+            out[pre + rate] = k1_primary(lambda: pipeline.render_frame(
+                w.bits, w.sdf, w.gi, w.atlas, c, e, include_gi=False,
+                sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True,
+                **kw), n)
+    out["full"] = k1_primary(eng.render_at,
+                             ec.render.height * ec.render.width)
+    calls = capture_k1(lambda: gi_update.update_gi(
+        w.gi, w.bits, w.sdf, w.atlas, ec, 0, 0, sky_y=w.sky_y,
+        table=w.trace_table))
+    assert len(calls) == 4, len(calls)
+    assert calls[2][0].max_supersteps == GI_BUDGET, calls[2][0]
+    out["gi_phase1"], out["gi_phase2"] = calls[2], calls[3]
+    return out
 
 
 def _bits(t):
@@ -410,32 +674,65 @@ def k1_trace_bytes(s0, s1, read, gathered) -> dict:
                 total_32b=reads + writes + 32 * sectors)
 
 
-def check_k1(eng, dev) -> dict:
-    """K1 against the plain loop on the whole primary trace: superstep by
-    superstep (``fused_superstep``, a budget of one superstep a launch) and
-    the whole trace in one launch (``trace_supersteps``), bit for bit on
-    all 11 state arrays and on ``steps``."""
+def _k1_mismatches(a, b):
+    import torch
+
+    from rvgrt_tpu_torch.trace import wavefront as wf
+
+    return [k for k in wf.STATE_KEYS
+            if not torch.equal(_bits(a[k]), _bits(b[k]))]
+
+
+def _k1_max_abs(a, b) -> float:
+    from rvgrt_tpu_torch.trace import wavefront as wf
+
+    return max([float((a[k].double() - b[k].double()).abs().max())
+                for k in wf.STATE_KEYS] + [0.0])
+
+
+def check_k1_trace(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
+    """K1 (one launch) against the plain loop on one captured trace, bit
+    for bit on all 11 state arrays and on ``steps``; with the launch's
+    graph-timed device ms."""
+    from rvgrt_tpu_torch.ops import superstep_kernel as k1
+
+    sp = {k: v.clone() for k, v in s0.items()}
+    want = int(k1.trace_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y))
+    sk = {k: v.clone() for k, v in s0.items()}
+    got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, sk, sky_y=sky_y))
+    bad = _k1_mismatches(sp, sk)
+    err = _k1_max_abs(sp, sk)
+    assert not bad and got == want, \
+        f"K1 differs from its plain version: arrays {bad} (max abs " \
+        f"{err}), steps {got} vs {want}"
+
+    def reset():
+        for key, v in s0.items():
+            sk[key].copy_(v)
+
+    ms = graph_ms(lambda: k1.trace_supersteps(cfg, rcfg, table, dirs, sk,
+                                              sky_y=sky_y), dev, setup=reset)
+    return dict(lanes=s0["flags"].numel(), budget=rcfg.max_supersteps,
+                steps=got, ms=ms, max_abs_err=err, bit_exact=True)
+
+
+def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
+    """K1 against the plain loop on the checkerboard primary trace, the
+    largest trace of the headline's frames (config-4's checkerboard and
+    the full-rate path's primary traces are about twice its size, and
+    ``check_k1_trace`` holds them): superstep by superstep (``fused_superstep``, a
+    budget of one superstep a launch) and the whole trace in one launch
+    (``trace_supersteps``), bit for bit on all 11 state arrays and on
+    ``steps``; with its graph time, event time, plain time and bound."""
     import torch
 
     from rvgrt_tpu_torch.ops import superstep_kernel as k1
     from rvgrt_tpu_torch.trace import wavefront as wf
 
-    cfg, rcfg = eng.ecfg.world, eng.ecfg.render
-    w = eng.world
-    table, sky_y = w.trace_table, w.sky_y
-    s0, dirs = capture_primary(eng, dev)
     n = s0["flags"].numel()
 
     def fresh():
         return {k: v.clone() for k, v in s0.items()}
-
-    def mismatches(a, b):
-        return [k for k in wf.STATE_KEYS
-                if not torch.equal(_bits(a[k]), _bits(b[k]))]
-
-    def max_abs(a, b):
-        return max([float((a[k].double() - b[k].double()).abs().max())
-                    for k in wf.STATE_KEYS] + [0.0])
 
     # superstep by superstep, in trace_plain's batches
     sp, sk = fresh(), fresh()
@@ -452,9 +749,9 @@ def check_k1(eng, dev) -> dict:
                                      gathered, read, turned)
             sp = nxt
             k1.fused_superstep(cfg, rcfg, table, dirs, sk, sky_y=sky_y)
-            if mismatches(sp, sk):
+            if _k1_mismatches(sp, sk):
                 bad_steps += 1
-                max_err = max(max_err, max_abs(sp, sk))
+                max_err = max(max_err, _k1_max_abs(sp, sk))
         steps += k
     assert steps > 0
     assert bad_steps == 0, f"K1 (one superstep a launch) differs from its " \
@@ -463,8 +760,8 @@ def check_k1(eng, dev) -> dict:
     # the whole trace in one launch
     s = fresh()
     got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y))
-    bad = mismatches(sp, s)
-    max_err = max(max_err, max_abs(sp, s))
+    bad = _k1_mismatches(sp, s)
+    max_err = max(max_err, _k1_max_abs(sp, s))
     assert not bad and got == steps, \
         f"K1 (one launch) differs from its plain version: arrays {bad} " \
         f"(max abs {max_err}), steps {got} vs {steps}"
@@ -477,11 +774,10 @@ def check_k1(eng, dev) -> dict:
 
     ms = graph_ms(lambda: k1.trace_supersteps(
         cfg, rcfg, table, dirs, graph_state, sky_y=sky_y), dev, setup=reset)
-
     event_ms = timed_ms(lambda s: k1.trace_supersteps(
         cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, setup=fresh)
     plain_ms = timed_ms(lambda s: k1.trace_plain(
-        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, reps=5, warmup=1,
+        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, reps=3, warmup=1,
         setup=fresh)
     moved = k1_trace_bytes(s0, sp, read, gathered)
     t_bytes = moved["total"] / HBM_BYTES_PER_S
@@ -496,12 +792,13 @@ def check_k1(eng, dev) -> dict:
                 bound_bytes_32b_sectors=moved["total_32b"],
                 table_words_gathered=int(gathered.sum()),
                 library_ms=None, max_abs_err=max_err, steps=steps,
-                shape=f"{n} lanes, {steps} supersteps (the primary trace, "
-                      f"one launch)")
+                lanes=n, budget=rcfg.max_supersteps, bit_exact=True,
+                shape=f"{n} lanes, {steps} supersteps (the checkerboard "
+                      f"primary trace, one launch)")
 
 
 def check_k2(state, motion, dev) -> dict:
-    """K2 on the last frame's real history and motion."""
+    """K2 on a loop's last real history and motion."""
     import torch
     import torch.nn.functional as F
 
@@ -706,21 +1003,30 @@ KERNELS = {
 }
 
 
-def run(dev, cube: int, frames: int, warmup: int, profile: int = 0) -> dict:
+def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
+        profile: int = 0) -> dict:
     import torch
 
     from rvgrt_tpu_torch.driver import engine
+    from rvgrt_tpu_torch.driver.frame_loop import WARMUP
     from rvgrt_tpu_torch.ops import _lib
-    from rvgrt_tpu_torch.scene.camera import phase_jitter_sequence
     from rvgrt_tpu_torch.trace import wavefront
 
     report = {}
-    t0 = time.perf_counter()
+    phase_s = report["phase_wall_s"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     _lib.library()
-    report["kernel_build_s"] = time.perf_counter() - t0
+    lap("kernel_build")
+    report["kernel_build_s"] = phase_s["kernel_build"]
     log(f"kernels built/loaded in {report['kernel_build_s']:.1f} s")
 
-    # ---- main path, part 1: the world build ----
+    # ---- main path: the world build ----
     ecfg = headline_config(cube, WIDTH, HEIGHT)
     torch.cuda.reset_peak_memory_stats()
     phase_times = {}
@@ -729,61 +1035,119 @@ def run(dev, cube: int, frames: int, warmup: int, profile: int = 0) -> dict:
     eng = engine.Engine(ecfg, verbose=False, device=dev,
                         phase_times=phase_times)
     torch.cuda.synchronize()
-    build_counts = read_counts()
+    counts = {"build": read_counts()}
     build_s = time.perf_counter() - t0
     report["build"] = {
         "world": f"{ecfg.world.size_x}x{ecfg.world.size_y}x"
                  f"{ecfg.world.size_z}",
         "wall_s": build_s, "phase_s": phase_times,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": build_counts}
+        "launches": counts["build"]}
     log(f"world build {build_s:.2f} s: {phase_times}")
-    assert build_counts["K3"] >= 2, build_counts
+    assert counts["build"]["K3"] >= 2, counts["build"]
+    pose = headline_pose(eng)
+    lap("world_build")
 
-    # ---- main path, part 2: the frames ----
-    eng.character.jitter_sequence = phase_jitter_sequence(3)
-    cam_y = place_camera(eng)
+    # ---- main path: the headline, bench.py's frames ----
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    outs, state, ms, last = run_frames(eng, warmup + frames, dev)
+    head = run_loop(eng.world, ecfg, pose, frames, dev, scale=3)
     torch.cuda.synchronize()
-    frame_counts = read_counts()
+    counts["headline"] = read_counts()
     stats = wavefront.read_stats()
-    timed = sorted(ms[warmup:])
-    check_image(outs[-1], (3 * HEIGHT, 3 * WIDTH, 3))
-    hit_share = float((last.depth != 1.0).float().mean())
+    rep = loop_report(head, counts["headline"], stats)
+    last = head["results"][-1]
+    check_image(last.image, (3 * HEIGHT, 3 * WIDTH, 3))
+    hit_share = float((last.out.depth != 1.0).float().mean())
     assert 0.0 < hit_share, "every pixel is sky"
-    report["frames"] = {
-        "render": f"{WIDTH}x{HEIGHT} -> {3 * WIDTH}x{3 * HEIGHT}",
-        "camera_y": cam_y, "warmup": warmup, "timed": frames,
-        "ms_median": statistics.median(timed),
-        "ms_p90": timed[min(len(timed) - 1,
-                            int(math.ceil(0.9 * len(timed))) - 1)],
-        "ms_all": ms, "hit_share": hit_share,
-        "launches": frame_counts, "traces": stats["traces"],
-        "k1_launches_per_frame": frame_counts["K1"] / (warmup + frames),
-        "traces_per_frame": stats["traces"] / (warmup + frames),
-        "supersteps": stats["supersteps"],
-        "supersteps_per_trace": stats["supersteps"] / max(stats["traces"],
-                                                          1),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"frames: median {report['frames']['ms_median']:.1f} ms, "
-        f"p90 {report['frames']['ms_p90']:.1f} ms, hit {hit_share:.3f}, "
-        f"K1 launches {frame_counts['K1']} for {stats['traces']} traces")
-    assert frame_counts["K1"] > 0 and frame_counts["K2"] > 0, frame_counts
-    # one launch per trace
-    assert frame_counts["K1"] == stats["traces"], (frame_counts, stats)
+    rep.update(render=f"{WIDTH}x{HEIGHT} -> {3 * WIDTH}x{3 * HEIGHT}",
+               camera=pose, hit_share=hit_share,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report["headline"] = rep
+    log(f"headline: median {rep['ms_median']:.1f} ms, p90 "
+        f"{rep['ms_p90']:.1f} ms, tiers {rep['per_tier']}, K1 launches "
+        f"{counts['headline']['K1']} for {stats['traces']} traces "
+        f"({stats['respites']} two-phase), overflow "
+        f"{rep['straggler_overflow']}")
+    assert rep["tier_mix"] == expected_mix(frames), rep["tier_mix"]
+    check_launches(counts["headline"], stats, len(head["ms"]),
+                   head["loop"].gi_windows)
+    lap("headline")
 
-    # ---- the same path on a small world, GPU against CPU ----
+    # ---- main path: config-4, 1920x1080 native on the same world ----
+    ecfg4 = native_config(ecfg, C4_WIDTH, C4_HEIGHT)
+    reset_counts()
+    c4 = run_loop(eng.world, ecfg4, pose, c4_frames, dev, scale=1)
+    torch.cuda.synchronize()
+    counts["config4"] = read_counts()
+    stats = wavefront.read_stats()
+    rep4 = loop_report(c4, counts["config4"], stats)
+    check_image(c4["results"][-1].image, (C4_HEIGHT, C4_WIDTH, 3))
+    rep4["render"] = f"{C4_WIDTH}x{C4_HEIGHT} native (scale 1)"
+    report["config4"] = rep4
+    log(f"config-4: median {rep4['ms_median']:.1f} ms, tiers "
+        f"{rep4['per_tier']}")
+    assert rep4["tier_mix"] == expected_mix(c4_frames), rep4["tier_mix"]
+    check_launches(counts["config4"], stats, len(c4["ms"]),
+                   c4["loop"].gi_windows)
+    lap("config4")
+
+    # ---- main path: the viewer's full-rate path ----
+    eng.character = make_character(ecfg, pose)
+    reset_counts()
+    outs, _, ms, out = run_full_rate(eng, WARMUP + full_frames, dev)
+    torch.cuda.synchronize()
+    counts["full_rate"] = read_counts()
+    stats = wavefront.read_stats()
+    check_image(outs[-1], (3 * HEIGHT, 3 * WIDTH, 3))
+    report["full_rate"] = {
+        "warmup": WARMUP, "timed": full_frames,
+        "ms_median": statistics.median(ms[WARMUP:]),
+        "ms_p90": p90(ms[WARMUP:]), "ms_all": ms,
+        "launches": counts["full_rate"], "traces": stats["traces"],
+        "respites": stats["respites"],
+        "k1_launches_per_frame": counts["full_rate"]["K1"] / len(ms)}
+    log(f"full rate: median {report['full_rate']['ms_median']:.1f} ms")
+    assert counts["full_rate"]["K1"] == stats["traces"] > 0, \
+        (counts["full_rate"], stats)
+    del outs
+    lap("full_rate")
+
+    # ---- the respite's cost on the card: the headline's first two
+    # windows ----
+    report["respite_cost"] = respite_cost(eng, dev,
+                                          (0, eng.ecfg.gi_window))
+    log(f"respite cost: {report['respite_cost']}")
+    lap("respite_cost")
+
+    # ---- the same paths on a small world, GPU against CPU ----
     report["reference"] = phase_reference(dev)
     log(f"reference: {report['reference']}")
+    lap("reference")
 
     # ---- each kernel against its plain version on the main path's
     # inputs (these launches are not counted) ----
-    checks = {"K1": check_k1(eng, dev), "K2": check_k2(state, last.motion,
-                                                       dev),
-              "K3": check_k3(eng, dev)}
-    launches = {k: build_counts[k] + frame_counts[k] for k in KERNELS}
+    cfg, w = ecfg.world, eng.world
+    k1_in = k1_inputs(eng, head["cams"][-1][1], ecfg4, c4["cams"][-1][1])
+    k1 = check_k1(cfg, w.trace_table, w.sky_y, *k1_in["checker"], dev)
+    # check_k1 held and timed the checkerboard trace; the others here
+    k1["traces"] = {"checker": {f: k1[f] for f in (
+        "lanes", "budget", "steps", "ms", "max_abs_err", "bit_exact")}}
+    k1["traces"].update({name: check_k1_trace(cfg, w.trace_table, w.sky_y,
+                                              *k1_in[name], dev)
+                         for name in ("quarter", "gi_phase1", "gi_phase2",
+                                      "c4_checker", "c4_quarter", "full")})
+    log(f"K1: {k1}")
+    del k1_in
+    lap("check_k1")
+    k2 = check_k2(head["loop"].state, last.out.motion, dev)
+    k2["config4"] = check_k2(c4["loop"].state, c4["results"][-1].out.motion,
+                             dev)
+    del head, c4
+    lap("check_k2")
+    checks = {"K1": k1, "K2": k2, "K3": check_k3(eng, dev)}
+    lap("check_k3")
+    launches = {k: sum(c[k] for c in counts.values()) for k in KERNELS}
     table = []
     for k, meta in KERNELS.items():
         c = checks[k]
@@ -792,14 +1156,16 @@ def run(dev, cube: int, frames: int, warmup: int, profile: int = 0) -> dict:
                                         "bound_ms", "bound_by",
                                         "library_ms")})
         row.update(kernel_ms=c["ms"], max_err=c["max_abs_err"],
+                   launches_by_path={p: v[k] for p, v in counts.items()},
                    **{f: v for f, v in c.items() if f not in row})
         table.append(row)
     report["kernels"] = table
 
     # ---- optional: where a frame's time goes ----
     if profile:
-        report["profile"] = profile_frames(eng, state, dev, profile)
+        report["profile"] = profile_frames(eng, pose, dev, profile)
         log(f"profile: {json.dumps(report['profile'], indent=1)}")
+        lap("profile")
     return report
 
 
@@ -807,12 +1173,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cube", type=int, default=10,
                     help="log2 of the world edge (default 10: 1024^3)")
-    ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--frames", type=int, default=12,
+                    help="timed headline frames, after 2 warm-ups")
+    ap.add_argument("--c4-frames", type=int, default=6,
+                    help="timed config-4 frames, after 2 warm-ups")
+    ap.add_argument("--full-frames", type=int, default=4,
+                    help="timed full-rate frames, after 2 warm-ups")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="after the checks, profile N more frames with "
-                         "torch.profiler (device busy time, idle share, "
-                         "top kernels)")
+                    help="after the checks, profile N more headline frames "
+                         "with torch.profiler (device busy time, idle "
+                         "share, top kernels)")
     ap.add_argument("--out", default="",
                     help="also write the whole report as JSON here")
     args = ap.parse_args(argv)
@@ -838,15 +1208,16 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    report = run(torch.device("cuda"), args.cube, args.frames, args.warmup,
-                 profile=args.profile)
+    report = run(torch.device("cuda"), args.cube, args.frames,
+                 args.c4_frames, args.full_frames, profile=args.profile)
     report["card"] = card
     report["wall_s"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
-    print(json.dumps({k: report[k] for k in ("build", "frames", "wall_s")}),
-          flush=True)
+    print(json.dumps({k: report[k] for k in (
+        "build", "headline", "config4", "full_rate", "respite_cost",
+        "phase_wall_s", "wall_s")}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,13 +8,15 @@ reference's xorshift32 per cell, seeded ``idx + frame * 198491317``, so both
 packages draw the same bits; the sphere direction is rejection-sampled over
 a fixed 8 attempts.
 
-The GI init is the ray-free heightfield one (``init_gi_heightfield``).  Not
-ported yet: the traced ``init_gi``, ``init_gi_chunked`` and
-``init_gi_strided``, and the two-phase straggler respite of the GI traces.
+The GI traces run the two-phase straggler respite when
+``gi_straggler_budget`` > 0 (``bench.py`` runs 12).  The GI init is the
+ray-free heightfield one (``init_gi_heightfield``).  Not ported yet: the
+traced ``init_gi``, ``init_gi_chunked`` and ``init_gi_strided``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -130,15 +132,21 @@ def init_gi_heightfield(bits, ecfg: EngineConfig,
 
 
 def update_gi(gi: torch.Tensor, bits, sdf, atlas, ecfg: EngineConfig,
-              frame: int, offset: int, sky_y=None,
-              table=None) -> torch.Tensor:
+              frame: int, offset: int, sky_y=None, table=None,
+              return_stats: bool = False):
     """One progressive sweep slice: update ``ecfg.gi_window`` cells starting
     at ``offset`` (GlobalIlluminate, CoarseArray.cu:273-355).  Returns the
-    new grid (``gi`` itself is not modified)."""
+    new grid (``gi`` itself is not modified).
+
+    ``ecfg.gi_straggler_budget > 0`` runs both traces with the two-phase
+    straggler respite (``wavefront._trace_two_phase``, engaged from 4 x
+    4096 cells).  ``return_stats``: also return ``{"straggler_overflow":
+    0-d int32 tensor}``, the rays of this window that overflowed the
+    respite's slots and read as misses; it stays on the device."""
     cfg, lcfg, rcfg = ecfg.world, ecfg.lighting, ecfg.render
     if ecfg.gi_straggler_budget > 0:
-        raise NotImplementedError("the GI straggler respite is not ported; "
-                                  "set gi_straggler_budget=0")
+        rcfg = dataclasses.replace(rcfg,
+                                   straggler_budget=ecfg.gi_straggler_budget)
     n = ecfg.gi_window
     dev = gi.device
     if table is None:
@@ -204,6 +212,10 @@ def update_gi(gi: torch.Tensor, bits, sdf, atlas, ecfg: EngineConfig,
     packed = torch.where(inside, prev_words, packed)
     new_gi = gi.clone()
     new_gi[offset:offset + n] = packed.reshape(-1)
+    if return_stats:
+        overflow = (shadow.degraded.sum(dtype=_I32)
+                    + bounce.degraded.sum(dtype=_I32))
+        return new_gi, {"straggler_overflow": overflow}
     return new_gi
 
 

@@ -2,7 +2,8 @@
 
 The port of ``rvgrt_tpu/render/pipeline.py`` (the reference's
 ``distApproximationKernel`` + ``renderKernel``, ``StateRender.cu:200-346``),
-single slab and full rate - the branches the headline frame takes:
+single slab, at full, checkerboard or quarter rate - the branches
+``bench.py``'s frames take:
 
   1. prepass at 1/prepass_divisor res, started from an even coarser cascade
      trace: distance (biased, miss = 300) and, when coupled, a shadow factor;
@@ -15,8 +16,11 @@ single slab and full rate - the branches the headline frame takes:
   5. motion vectors and clip depth from the two view-projection matrices.
 
 Every trace goes through ``wavefront.trace`` and so, on a GPU, kernel K1.
-Not ported yet: the checker and quarter rates, the temporal start hints,
-the start/shadow overrides and the sharded slab halo.
+The checker and quarter rates cut the primary grid before the primary
+trace (``checker_select`` / ``quarter_select``); their expands and valid
+masks are here too.  Not ported yet: the temporal start hints, the
+start/shadow overrides, ``gi_composite(return_addend=True)`` (the
+composite-cadence reuse) and the sharded slab halo.
 """
 
 from __future__ import annotations
@@ -381,11 +385,96 @@ def gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg):
                               rcfg.gi_depth_threshold)
 
 
+def checker_select(a: torch.Tensor, parity: int, y0: int = 0):
+    """(H, W[, C]) -> (H, W/2[, C]): keep each row's checkerboard-active
+    columns, ``x = 2j + off`` with ``off = (y0 + row + parity) & 1``.
+    ``parity`` is a host int (the schedule is host-side: no device
+    read)."""
+    h = a.shape[0]
+    off = (torch.arange(h, dtype=_I32, device=a.device) + y0 + parity) & 1
+    off = off.reshape((h,) + (1,) * (a.ndim - 1))
+    return torch.where(off == 0, a[:, 0::2], a[:, 1::2])
+
+
+#: dispatch order of the 4-phase quarter interleave: the 2x2 quad is
+#: visited diagonally ((0,0), (1,1), (0,1), (1,0)), so any two consecutive
+#: frames form a checkerboard and any four the full grid
+QUARTER_PHASE_ORDER = (0, 3, 1, 2)
+
+
+def quarter_select(a: torch.Tensor, phase: int) -> torch.Tensor:
+    """(H, W[, C]) -> (H/2, W/2[, C]): keep the pixels with ``y & 1 ==
+    phase >> 1`` and ``x & 1 == phase & 1``, the quarter a 4-phase frame
+    traces."""
+    h, w = a.shape[0], a.shape[1]
+    a4 = a.reshape((h // 2, 2, w // 2, 2) + tuple(a.shape[2:]))
+    return a4[:, (phase >> 1) & 1, :, phase & 1]
+
+
+def quarter_expand(q: torch.Tensor) -> torch.Tensor:
+    """(H/2, W/2[, C]) -> (H, W[, C]) nearest fill: ``q[i, j]`` lands on
+    all four pixels of its 2x2 quad, whatever the phase (the validity mask
+    is what down-weights the three copies)."""
+    return torch.repeat_interleave(torch.repeat_interleave(q, 2, dim=0), 2,
+                                   dim=1)
+
+
+def quarter_valid_mask(height: int, width: int, phase: int,
+                       device=None) -> torch.Tensor:
+    """(H, W) bool: True where this 4-phase frame traced a pixel."""
+    ys = torch.arange(height, dtype=_I32, device=device)[:, None]
+    xs = torch.arange(width, dtype=_I32, device=device)[None, :]
+    return ((ys & 1) == ((phase >> 1) & 1)) & ((xs & 1) == (phase & 1))
+
+
+def checker_expand(half: torch.Tensor, parity: int, y0: int = 0):
+    """(H, W/2[, C]) checkerboard buffer -> (H, W[, C]) full frame.
+
+    Traced pixels keep their exact values; each untraced pixel is the
+    average of its 4 traced neighbours (left/right in its row, up/down in
+    the adjacent rows), edge-clamped, summed first and then scaled by 0.25
+    as in the JAX package.  The fill is a placeholder that
+    ``temporal_upscale(valid=...)`` down-weights wherever history exists."""
+    h, w2 = half.shape[0], half.shape[1]
+    off = (torch.arange(h, dtype=_I32, device=half.device) + y0
+           + parity) & 1
+    off = off.reshape((h,) + (1,) * (half.ndim - 1))
+    # the JAX package's _shift_rows / _shift_cols: edge-clamped shifts
+    vert = _clamped_shift(half, -1, 0) + _clamped_shift(half, 1, 0)
+    # off == 0 (traced at even x): untraced odd x' = 2j+1 between half
+    # cols j and j+1; off == 1: untraced even x' = 2j between j-1 and j
+    fill0 = (half + _clamped_shift(half, 1, 1) + vert) * 0.25
+    fill1 = (_clamped_shift(half, -1, 1) + half + vert) * 0.25
+    fill = torch.where(off == 0, fill0, fill1)
+    evens = torch.where(off == 0, half, fill)
+    odds = torch.where(off == 0, fill, half)
+    out = torch.stack([evens, odds], dim=2)
+    return out.reshape((h, 2 * w2) + tuple(half.shape[2:]))
+
+
+def checker_valid_mask(height: int, width: int, parity: int,
+                       device=None) -> torch.Tensor:
+    """(H, W) bool: True where this checkerboard frame traced a pixel
+    (``(x + y + parity) & 1 == 0``)."""
+    ys = torch.arange(height, dtype=_I32, device=device)[:, None]
+    xs = torch.arange(width, dtype=_I32, device=device)[None, :]
+    return ((xs + ys + parity) & 1) == 0
+
+
 def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
                 ecfg: EngineConfig, y0: int, slab_h: int,
                 include_gi: bool = True, sky_y=None, table=None,
-                return_gbuffer: bool = False, trace_fn=None):
-    """Render rows [y0, y0 + slab_h) of the frame at full rate."""
+                return_gbuffer: bool = False, trace_fn=None,
+                checker_parity: int | None = None,
+                quarter_phase: int | None = None):
+    """Render rows [y0, y0 + slab_h) of the frame.
+
+    ``checker_parity`` (0/1): trace only the pixels with ``(x + y +
+    parity) & 1 == 0``; ``quarter_phase`` (0-3): only one pixel of each 2x2
+    quad (``quarter_select``).  The outputs and G-buffer then come back on
+    the rate-cut grid, (H, W/2) or (H/2, W/2); the caller expands them
+    after the GI composite (``checker_expand`` / ``quarter_expand``) and
+    hands the upscaler the matching valid mask.  Both are host ints."""
     cfg, rcfg, lcfg = ecfg.world, ecfg.render, ecfg.lighting
     w, h = rcfg.width, slab_h
     if trace_fn is None:
@@ -419,6 +508,20 @@ def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
     # ---- 3: full-res primary ----
     dx, dy, dz = _ray_dirs(cam, w, rcfg.height, pixel_center=False,
                            y0=y0, rows=slab_h)
+    sel = None
+    if checker_parity is not None:
+        def sel(a):
+            return checker_select(a, checker_parity, y0=y0)
+    elif quarter_phase is not None:
+        def sel(a):
+            return quarter_select(a, quarter_phase)
+    if sel is not None:
+        # the rate cut: directions, starts and a coupled shadow are taken
+        # on the traced pixels before the primary trace
+        dx, dy, dz = sel(dx), sel(dy), sel(dz)
+        start_dist = sel(start_dist)
+        if shadow_full is not None:
+            shadow_full = sel(shadow_full)
     res = trace_fn(cam.pos[0] + torch.zeros_like(dx), cam.pos[1],
                    cam.pos[2], dx, dy, dz, start_dist)
     hit = res.hit
@@ -536,12 +639,15 @@ def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
 def render_frame(bits, sdf, gi, atlas, cam: CameraArrays,
                  ecfg: EngineConfig, include_gi: bool = True,
                  sky_y=None, table=None, return_gbuffer: bool = False,
-                 trace_fn=None):
+                 trace_fn=None, checker_parity: int | None = None,
+                 quarter_phase: int | None = None):
     """Full frame = one slab covering every row."""
     return render_slab(bits, sdf, gi, atlas, cam, ecfg, y0=0,
                        slab_h=ecfg.render.height, include_gi=include_gi,
                        sky_y=sky_y, table=table,
-                       return_gbuffer=return_gbuffer, trace_fn=trace_fn)
+                       return_gbuffer=return_gbuffer, trace_fn=trace_fn,
+                       checker_parity=checker_parity,
+                       quarter_phase=quarter_phase)
 
 
 def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig):

@@ -30,12 +30,22 @@ iteration budgets 5 x (100 sphere + 200 DDA), the exact ``its`` counter,
 tMax/uv/normal construction, fp16 quantization of the start distance, OOB =>
 miss; a first-cell hit returns normal 0, pos = entry point, uv = 0.
 
-Not ported yet: the volume-sharded ``z_edges`` mode, ``slim_carry``, the
-two-phase straggler respite and its resume export.
+The two-phase straggler respite (``RenderConfig.straggler_budget`` > 0, at
+``RESPITE_MIN_RAYS`` rays or more, as in JAX): phase 1 runs every lane for
+at most ``straggler_budget`` supersteps and exports a resume point for each
+lane still marching; those lanes are compacted, in ascending lane order,
+into ``respite_slots(N)`` slots and finished by phase 2 at the full budget;
+over-cap lanes read as misses flagged ``degraded``.  Each phase is one
+trace (one K1 launch), and nothing is read back: the compaction is a
+cumulative sum and a sorted search on the device, its size set by N on
+the host.
+
+Not ported yet: the volume-sharded ``z_edges`` mode and ``slim_carry``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -67,19 +77,24 @@ _SP_SH, _SP_W = 8, 7        # sphere step counter
 _DD_SH, _DD_W = 15, 8       # DDA step counter
 _PR_SH = 23                 # probed flag
 
-#: trace calls and supersteps run since the last reset; ``supersteps`` sums
-#: each trace's 0-d ``steps`` tensor on its device, so keeping it costs no
-#: host read.  Read it with ``read_stats``.
-stats = {"traces": 0, "supersteps": 0}
+#: traces run since the last reset (one K1 launch each on a GPU; each
+#: phase of a two-phase trace counts as one), the two-phase traces among
+#: them (``respites``), and their supersteps: ``supersteps`` sums each
+#: trace's 0-d ``steps`` tensor on its device, so keeping it costs no host
+#: read.  Read it with ``read_stats``.
+stats = {"traces": 0, "respites": 0, "supersteps": 0}
+
+#: the two-phase respite engages at this many rays or more (the JAX rule)
+RESPITE_MIN_RAYS = 4 * 4096
 
 
 def reset_stats() -> None:
-    stats.update(traces=0, supersteps=0)
+    stats.update(traces=0, respites=0, supersteps=0)
 
 
 def read_stats() -> dict:
     """``stats`` as ints: one host read, which waits for the device."""
-    return {"traces": stats["traces"],
+    return {"traces": stats["traces"], "respites": stats["respites"],
             "supersteps": int(stats["supersteps"])}
 
 #: carried per-lane state, in kernel argument order
@@ -108,10 +123,12 @@ class TraceResult(NamedTuple):
     uv_v: torch.Tensor
     its: torch.Tensor   # iteration count (i32) - the Mrays/s work metric
     t: torch.Tensor     # ray parameter of the hit (f32; 0 on miss)
-    exit_dir: torch.Tensor | int = 0  # volume-sharded mode only (0 here)
-    # supersteps the trace ran (i32, same value for every lane)
+    # 0; 2/3 (resume point of a sphere/DDA lane) only inside the respite
+    exit_dir: torch.Tensor | int = 0
+    # supersteps the trace ran (i32; a two-phase lane adds its phases')
     steps: torch.Tensor | int = 0
-    degraded: torch.Tensor | int = 0  # two-phase respite only (False here)
+    # an unfinished lane beyond the respite's slots, read as a miss
+    degraded: torch.Tensor | int = 0
 
 
 def make_trace_table(bits: torch.Tensor, sdf: torch.Tensor,
@@ -366,6 +383,8 @@ def trace(bits, sdf, cfg: WorldConfig, rcfg: RenderConfig,
     ``sky_y``: 0-d tensor, 1 + the highest solid voxel's y; upward rays at
     or above it retire at once (image-identical, fewer ``its``).
     ``table``: the combined gather table (built from bits/sdf if None).
+    With ``rcfg.straggler_budget > 0`` and at least ``RESPITE_MIN_RAYS``
+    rays the trace runs in two phases (``_trace_two_phase``).
     """
     if table is None:
         table = make_trace_table(bits, sdf, cfg)
@@ -374,18 +393,101 @@ def trace(bits, sdf, cfg: WorldConfig, rcfg: RenderConfig,
            for a in (ox, oy, oz, dx, dy, dz, t_start)]
     shape = torch.broadcast_shapes(*(a.shape for a in ins))
     flat = [a.broadcast_to(shape).reshape(-1).contiguous() for a in ins]
-    res = _trace_impl(table, cfg, rcfg, *flat,
-                      quantize_start_fp16=quantize_start_fp16, sky_y=sky_y)
+    if rcfg.straggler_budget > 0 and flat[0].numel() >= RESPITE_MIN_RAYS:
+        res = _trace_two_phase(table, cfg, rcfg, flat, quantize_start_fp16,
+                               sky_y)
+    else:
+        res = _trace_impl(table, cfg, rcfg, *flat,
+                          quantize_start_fp16=quantize_start_fp16,
+                          sky_y=sky_y)
     return TraceResult(*(r.reshape(shape) for r in res))
 
 
 def _trace_impl(table, cfg: WorldConfig, rcfg: RenderConfig,
                 ox, oy, oz, dx, dy, dz, t0,
-                quantize_start_fp16: bool, sky_y=None) -> TraceResult:
+                quantize_start_fp16: bool, sky_y=None,
+                resume: bool = False) -> TraceResult:
     s, dirs = start_state(cfg, ox, oy, oz, dx, dy, dz, t0,
                           quantize_start_fp16, sky_y=sky_y)
     steps = run_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y)
-    return _payload(s, dirs, ox, oy, oz, steps)
+    return _payload(s, dirs, ox, oy, oz, steps, resume=resume)
+
+
+def respite_slots(n: int, cap_frac: float) -> int:
+    """Phase 2's lane count for an N-ray two-phase trace: ``cap_frac * N``
+    rounded up to whole 4096-lane rows, at least one row and at most N
+    rounded up (``rvgrt_tpu/trace/wavefront.py``'s rule).  A host int that
+    depends only on N, so the compaction reads nothing back."""
+    capn = -(-max(4096, int(n * cap_frac)) // 4096) * 4096
+    return min(capn, -(-n // 4096) * 4096)
+
+
+def _trace_two_phase(table, cfg: WorldConfig, rcfg: RenderConfig, rays,
+                     quantize_start_fp16: bool, sky_y) -> TraceResult:
+    """The straggler respite over flat rays (the JAX ``_trace_two_phase``).
+
+    Phase 1 runs every lane for at most ``straggler_budget`` supersteps
+    (rounded up to whole batches of ``steps_per_check``, where the JAX
+    tiles stop it) and exports a resume point for each lane still marching
+    (``exit_dir`` 2: sphere, at its position; 3: DDA, at its current
+    cell's entry point).  The k-th unfinished lane, in ascending lane
+    order, fills slot k of phase 2 (a sorted search of the unfinished
+    lanes' running count; the JAX package's ``nonzero(size=capn)``);
+    phase 2 resumes it without fp16 quantisation, a DDA lane 0.25 voxels
+    behind its entry point (clamped at 0), and runs at the full budget.
+    Padding slots start outside the world and retire at once.  The merge
+    takes phase 2's fields for the slotted lanes, with ``its = max(its1 +
+    its2 - corr, its1)`` (``corr`` 2 for DDA lanes, 1 for sphere lanes);
+    unfinished lanes beyond the slots read as misses flagged
+    ``degraded``."""
+    n = rays[0].numel()
+    dev = rays[0].device
+    rcfg1 = dataclasses.replace(rcfg, max_supersteps=rcfg.straggler_budget)
+    r1 = _trace_impl(table, cfg, rcfg1, *rays,
+                     quantize_start_fp16=quantize_start_fp16, sky_y=sky_y,
+                     resume=True)
+
+    capn = respite_slots(n, rcfg.straggler_cap_frac)
+    unfin = r1.exit_dir >= 2
+    rank = torch.cumsum(unfin.to(torch.int64), 0)  # 1-based at unfinished
+    want = torch.arange(1, capn + 1, dtype=torch.int64, device=dev)
+    take = torch.searchsorted(rank, want)  # the lane of each slot, n if none
+    ok = take < n
+    gtake = torch.clamp_max(take, n - 1)
+
+    code_t = r1.exit_dir[gtake]
+    t2 = r1.t[gtake] - torch.where(code_t == 3, 0.25, 0.0)
+    t2 = torch.where(ok, torch.clamp_min(t2, 0.0), 0.0)
+    o2 = [torch.where(ok, a[gtake], -10.0) for a in rays[:3]]
+    d2 = [a[gtake] for a in rays[3:6]]
+    rcfg2 = dataclasses.replace(rcfg, straggler_budget=0)
+    r2 = _trace_impl(table, cfg, rcfg2, *o2, *d2, t2,
+                     quantize_start_fp16=False, sky_y=sky_y)
+    stats["respites"] += 1
+
+    taken = unfin & (rank <= capn)
+    slot = torch.clamp(rank - 1, 0, capn - 1)
+
+    def put(f1, f2):
+        return torch.where(taken, f2[slot], f1)
+
+    its1 = r1.its[gtake]
+    corr = 1 + (code_t == 3).to(_I32)
+    its2 = torch.maximum(its1 + r2.its - corr, its1)
+    steps1 = r1.steps[gtake]
+    leftover = unfin & ~taken
+    return TraceResult(
+        hit=put(r1.hit, r2.hit),
+        px=torch.where(leftover, MISS_POS, put(r1.px, r2.px)),
+        py=torch.where(leftover, MISS_POS, put(r1.py, r2.py)),
+        pz=torch.where(leftover, MISS_POS, put(r1.pz, r2.pz)),
+        nx=put(r1.nx, r2.nx), ny=put(r1.ny, r2.ny), nz=put(r1.nz, r2.nz),
+        uv_u=put(r1.uv_u, r2.uv_u), uv_v=put(r1.uv_v, r2.uv_v),
+        its=put(r1.its, its2),
+        t=torch.where(leftover, 0.0, put(r1.t, r2.t)),
+        exit_dir=torch.zeros_like(r1.exit_dir),
+        steps=put(r1.steps, steps1 + r2.steps),
+        degraded=leftover)
 
 
 def start_state(cfg: WorldConfig, ox, oy, oz, dx, dy, dz, t0,
@@ -457,8 +559,12 @@ def run_supersteps(cfg: WorldConfig, rcfg: RenderConfig, table, dirs, s,
     return steps
 
 
-def _payload(s, dirs, ox, oy, oz, steps) -> TraceResult:
-    """The hit payload reconstructed from the final state."""
+def _payload(s, dirs, ox, oy, oz, steps, resume: bool = False
+             ) -> TraceResult:
+    """The hit payload reconstructed from the final state.  ``resume``
+    (phase 1 of the respite): a lane still in SPHERE or DDA keeps a
+    position, its resume point - a sphere lane's current position, a DDA
+    lane's current cell entry point - with ``exit_dir`` 2 or 3."""
     dx, dy, dz, ddx, ddy, ddz, stx, sty, stz = dirs
     # ---------------- post-loop hit payload ----------------
     flags = s["flags"]
@@ -494,16 +600,28 @@ def _payload(s, dirs, ox, oy, oz, steps) -> TraceResult:
     uvv = torch.where(m == MASK_X, uvv_x,
                       torch.where(m == MASK_Y, hz - fz_,
                                   torch.where(m == MASK_Z, hy - fy_, 0.0)))
-    out_px = torch.where(hit, hx, MISS_POS)
-    out_py = torch.where(hit, hy, MISS_POS)
-    out_pz = torch.where(hit, hz, MISS_POS)
+    if resume:
+        unf_sphere = phase == PHASE_SPHERE
+        unf_dda = phase == PHASE_DDA
+        hx = torch.where(unf_sphere, s["px"], hx)
+        hy = torch.where(unf_sphere, s["py"], hy)
+        hz = torch.where(unf_sphere, s["pz"], hz)
+        keep = hit | unf_sphere | unf_dda
+        exit_dir = torch.where(unf_sphere, 2, torch.where(unf_dda, 3, 0)
+                               ).to(_I32)
+    else:
+        keep = hit
+        exit_dir = torch.zeros_like(s["its"])
+    out_px = torch.where(keep, hx, MISS_POS)
+    out_py = torch.where(keep, hy, MISS_POS)
+    out_pz = torch.where(keep, hz, MISS_POS)
     t_out = torch.where(
-        hit, (out_px - ox) * dx + (out_py - oy) * dy + (out_pz - oz) * dz,
+        keep, (out_px - ox) * dx + (out_py - oy) * dy + (out_pz - oz) * dz,
         0.0)
     return TraceResult(
         hit=hit, px=out_px, py=out_py, pz=out_pz,
         nx=nx, ny=ny, nz=nz,
         uv_u=torch.where(hit, uvu, 0.0), uv_v=torch.where(hit, uvv, 0.0),
-        its=s["its"], t=t_out, exit_dir=torch.zeros_like(s["its"]),
+        its=s["its"], t=t_out, exit_dir=exit_dir,
         steps=steps.expand_as(s["its"]),
         degraded=torch.zeros_like(hit))

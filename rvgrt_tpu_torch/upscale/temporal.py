@@ -16,11 +16,13 @@ with motion-vector reprojection + neighborhood variance clipping.
   ``"bilinear_shift"`` (the JAX default) one gather + output-space shifts;
 * rectification clamps to mean +- gamma*std over the 3x3 low-res
   neighborhood, nearest-upsampled;
-* blending is a running average with a confidence count.
+* blending is a running average with a confidence count;
+* rate-cut frames (checkerboard, quarter) pass ``valid``: untraced pixels
+  keep their history and enter at a small weight.
 
-Not ported yet: ``temporal_upscale_slab``, depth rejection, the ``valid``
-mask of the checker/quarter rates, the ``nearest`` and ``catmull_shift``
-taps.
+The same accumulator runs at scale 1 as native-resolution reconstruction
+(``bench.py``'s config-4).  Not ported yet: ``temporal_upscale_slab``,
+depth rejection, the ``nearest`` and ``catmull_shift`` taps.
 """
 
 from __future__ import annotations
@@ -272,12 +274,17 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
                      motion_decay: float = 0.35,
                      gamma_static: float = 1.5, gamma_moving: float = 0.6,
                      beta_static: float = 8.0, beta_moving: float = 40.0,
-                     adapt_rate: float = 8.0, valid=None):
+                     adapt_rate: float = 8.0, valid=None,
+                     invalid_weight: float = 0.05):
     """One frame of temporal super-resolution.  Returns ``(out,
-    new_state)`` with ``out`` (SCALE*h, SCALE*w, 3).  ``valid`` must be
-    None (the checker/quarter rates are not ported)."""
-    if valid is not None:
-        raise NotImplementedError("temporal_upscale(valid=...) is not ported")
+    new_state)`` with ``out`` (scale*h, scale*w, 3); the scale (3 for the
+    display upscale, 1 for native-res reconstruction) is the state's.
+
+    ``valid``: optional (h, w) bool, True where this frame traced the
+    low-res pixel (``pipeline.checker_valid_mask`` /
+    ``quarter_valid_mask``).  An untraced pixel keeps its history
+    unclamped (its neighbourhood box is built from filled copies) and its
+    current sample enters at ``invalid_weight`` x the normal weight."""
     del depth  # depth rejection is not ported
     h, w = color.shape[0], color.shape[1]
     scale = state.history.shape[0] // h
@@ -305,8 +312,17 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
         clamp_beta = _nearest_up(
             beta_static + (beta_moving - beta_static) * a, scale)
 
+    v3 = None
+    if valid is not None:
+        v3 = valid.to(_F32)
+        if scale > 1:
+            v3 = _nearest_up(v3, scale)
+
     mn, mx = _neighborhood_box(color, gamma, scale=scale)
     clamped = torch.clamp(hist, mn - clamp_eps, mx + clamp_eps)
+    if v3 is not None:
+        # an untraced pixel keeps its history as it is
+        clamped = v3[None] * clamped + (1.0 - v3[None]) * hist
     # history that needed clamping is stale: scale its sample count down
     d = torch.abs(hist - clamped)
     clamp_dist = (d[0] + d[1] + d[2]) / 3.0
@@ -315,6 +331,8 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
     n_w = n_prev * torch.exp(-clamp_dist * beta)
 
     w_cur = _current_weight(jitter_ndc, h, w, sigma, w_min, scale=scale)
+    if v3 is not None:
+        w_cur = w_cur * (v3 + (1.0 - v3) * invalid_weight)
     den = n_w + w_cur
     out_cf = (n_w[None] * clamped + w_cur[None] * cur) / den[None]
     out_cf = torch.clamp(out_cf, 0.0, 1.0)

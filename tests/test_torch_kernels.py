@@ -2,7 +2,9 @@
 
 K1 (the tracer: a whole trace in one launch, and one superstep per launch),
 K2 (history warp) and K3 (SDF min-plus pass) at small shapes: a 64^3 world
-built by the port, random rays, a random packed history.  Every test here
+built by the port, random rays, a random packed history.  Also on the card
+against the CPU: the two-phase straggler respite (two K1 launches, no host
+read) and checkerboard and quarter-rate frames.  Every test here
 needs a CUDA GPU and skips without one (a CUDA kernel has no interpret
 mode).  The file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed; the suite's
@@ -209,26 +211,125 @@ def test_trace_supersteps_matches_plain_state(cuda, worlds, cadence):
         assert _bits_equal(s[k], before[k]), k
 
 
+def _fan():
+    """``tests/test_trace.py``'s straggler fan: 128 x 128 = 4 x 4096 rays
+    from an open-air spot of the 64^3 world, where the respite engages."""
+    h = w = 128
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    dx = -0.6 + 1.4 * (xs / w)
+    dy = 0.55 - 1.3 * (ys / h)
+    dz = -0.6 + 1.4 * (ys / h)
+    n_ = np.sqrt(dx * dx + dy * dy + dz * dz + 1e-8)
+    z = np.zeros((h, w), np.float32)
+    return [np.ascontiguousarray(a, np.float32)
+            for a in (z + 47.5, z + 36.0, z + 32.5, dx / n_, dy / n_,
+                      dz / n_, z)]
+
+
 def test_trace_makes_no_host_read(cuda, worlds):
     """``wavefront.trace`` on a CUDA table runs under
-    ``set_sync_debug_mode("error")``: no host read anywhere on its path."""
-    ecfg = _ecfg(**CADENCES["bench"])
+    ``set_sync_debug_mode("error")``: no host read anywhere on its path,
+    for a one-phase trace (one K1 launch) and for a trace that engages the
+    two-phase respite (two launches, the compaction on the device)."""
+    one = _ecfg(**CADENCES["bench"])
+    two = _ecfg(**CADENCES["bench"], straggler_budget=12)
     w = worlds[0]
-    rays = [torch.from_numpy(a).to(cuda) for a in _rays((24, 32), 3)]
-    # a first trace builds and loads the kernel library outside the check
-    wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
-                    table=w.trace_table, sky_y=w.sky_y)
-    n0 = superstep_kernel.launches
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
-                              table=w.trace_table, sky_y=w.sky_y)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    assert superstep_kernel.launches == n0 + 1
-    assert bool(res.hit.any())
+    cases = [(one, [torch.from_numpy(a).to(cuda)
+                    for a in _rays((24, 32), 3)], 1),
+             (two, [torch.from_numpy(a).to(cuda) for a in _fan()], 2)]
+    for ecfg, rays, launched in cases:
+        # a first trace builds and loads the kernel library outside the
+        # check
+        wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                        table=w.trace_table, sky_y=w.sky_y)
+        n0 = superstep_kernel.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                                  table=w.trace_table, sky_y=w.sky_y)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert superstep_kernel.launches == n0 + launched
+        assert bool(res.hit.any())
+
+
+#: two-phase traces of the fan: (budget, cap fraction, render extras)
+RESPITE_CASES = {
+    "b12_f0.25": (12, 0.25, {}),
+    "b4_f1.0": (4, 1.0, {}),
+    "tiny_cap": (5, 1e-6, dict(steps_per_check=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(RESPITE_CASES))
+def test_respite_trace_gpu_matches_cpu(cuda, worlds, case):
+    """The two-phase trace on the card equals its CPU run bit for bit, on
+    every traced field, ``degraded``, ``exit_dir`` and ``steps``: two K1
+    launches, each phase one trace."""
+    budget, frac, extra = RESPITE_CASES[case]
+    ecfg = _ecfg(**{**CADENCES["bench"], **extra}, straggler_budget=budget,
+                 straggler_cap_frac=frac)
+    res = {}
+    for w in worlds:
+        dev = w.bits.device
+        rays = [torch.from_numpy(a).to(dev) for a in _fan()]
+        n0 = superstep_kernel.launches
+        wavefront.reset_stats()
+        res[dev.type] = wavefront.trace(None, None, ecfg.world, ecfg.render,
+                                        *rays, table=w.trace_table,
+                                        sky_y=w.sky_y)
+        stats = wavefront.read_stats()
+        assert stats["traces"] == 2 and stats["respites"] == 1
+        assert superstep_kernel.launches - n0 == 2 * (dev.type == "cuda")
+    for f in ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v",
+              "its", "t", "exit_dir", "steps", "degraded"):
+        assert _bits_equal(getattr(res["cuda"], f).cpu(),
+                           getattr(res["cpu"], f)), f
+    assert bool(res["cpu"].degraded.any()) == (case == "tiny_cap")
+
+
+@pytest.mark.parametrize("rate", ["checker", "quarter"])
+def test_rate_cut_frame_gpu_matches_cpu(cuda, worlds, rate):
+    """A checkerboard (parity 1) and a quarter-rate (phase 3) frame of the
+    64^3 world at 128x80 with the headline's settings, base and GI
+    composite, on the card against the CPU: the same hits, >= 50 dB."""
+    from rvgrt_tpu_torch.render import pipeline
+    from rvgrt_tpu_torch.scene.camera import Camera
+
+    ecfg = dataclasses.replace(
+        _ecfg(**CADENCES["bench"], width=128, height=80, prepass_divisor=8,
+              shadow_site_divisor=4, gi_res_divisor=16),
+        lighting=dataclasses.replace(tcfg.LightingConfig(),
+                                     soft_shadows=True,
+                                     soft_shadow_stride=2))
+    fwd = np.array([0.25, -0.18, -1.0], np.float32)
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 1.0, 0.0]).astype(np.float32)
+    right /= np.linalg.norm(right)
+    up = np.cross(fwd, right).astype(np.float32)
+    cam = Camera(pos=np.array([30.0, 44.0, 60.0], np.float32), forward=fwd,
+                 right=right, up=up)
+    vp = np.eye(4, dtype=np.float32)
+    vp[0, 0], vp[1, 1], vp[2, 3], vp[3, 2] = 1.1, 1.7, -1.0, -0.2
+    kw = (dict(checker_parity=1) if rate == "checker"
+          else dict(quarter_phase=3))
+    got = {}
+    for w in worlds:
+        dev = w.bits.device
+        ca = engine.camera_arrays(cam, vp, vp, (0.0021, -0.0034), 0.25,
+                                  device=dev)
+        out, gb = pipeline.render_frame(
+            w.bits, w.sdf, w.gi, w.atlas, ca, ecfg, include_gi=False,
+            sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True, **kw)
+        comp = pipeline.gi_composite(out.color, gb, w.gi, w.sdf, ecfg)
+        got[dev.type] = (gb.hit.cpu(), comp.cpu())
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+    assert 0.05 < float(got["cpu"][0].float().mean()) < 0.95
+    mse = float(((got["cuda"][1].double() - got["cpu"][1].double()) ** 2)
+                .mean())
+    assert mse == 0.0 or 10.0 * np.log10(1.0 / mse) >= 50.0
 
 
 def test_warp_kernel_matches_plain(cuda):

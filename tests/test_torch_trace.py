@@ -8,18 +8,28 @@ K1's plain version, so both settings must give the JAX result), and at the
 bench cadence with a superstep budget that cuts rays mid-flight.  One
 superstep of K1's plain version is also held against the JAX XLA body (the
 oracle of the Pallas kernel) on real mid-trace states.  ``steps`` is not
-compared: it counts the TPU's row-tile cost.  The JAX side runs without FMA
+compared: it counts the TPU's row-tile cost.
+
+The two-phase straggler respite, on ``tests/test_trace.py``'s 128 x 128 ray
+fan: budgets 4, 8 and 12 at cap fractions 1.0 and 0.25, and a forced-tiny
+cap, bit-exact on every traced field and on ``degraded`` and ``exit_dir``,
+engaged at exactly 4 x 4096 rays and not one ray below; and the GI window's
+overflow count with the respite engaged.  The JAX side runs without FMA
 contraction (tests/torch_jaxref.py).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from rvgrt_tpu_torch import config as tcfg
+from rvgrt_tpu_torch.core import u32
 from rvgrt_tpu_torch.driver import engine
+from rvgrt_tpu_torch.gi import update as gi_update
 from rvgrt_tpu_torch.ops import superstep_kernel
 from rvgrt_tpu_torch.trace import wavefront
 from tests import torch_jaxref as ref
@@ -37,6 +47,26 @@ FIELDS = ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v", "its",
 CAPPED = ref.with_render(ref.with_render(WORLD, **CADENCES["bench"]),
                          max_supersteps=13, steps_per_check=4)
 SHAPE = (48, 64)
+# the two-phase straggler respite: (budget, cap fraction, render extras) at
+# the bench cadence.  The fan is 128 x 128 = 4 x 4096 rays, exactly where
+# it engages; "below" drops one ray, so both packages trace in one phase.
+# "tiny" forces the slots far below the unfinished lanes (over-cap lanes
+# read as misses flagged degraded), with a budget of 5 in batches of 2.
+RESPITE = {
+    **{f"b{b}_f{f}": (b, f, {}) for b in (4, 8, 12) for f in (1.0, 0.25)},
+    "tiny": (5, 1e-6, dict(steps_per_check=2)),
+    "below": (12, 0.25, {}),
+}
+FAN = (128, 128)
+# a GI window of 16 384 cells (a 64^3 world with gi_coarseness 2: the grid's
+# upper half, the lower half is buried), budget 4 and a forced-tiny cap, so
+# that the window overflows
+GI_OFFSET = 16384
+GI_SPEC = {**ref.with_render(WORLD, **CADENCES["bench"],
+                             straggler_cap_frac=1e-6),
+           "world": dict(gi_coarseness=2),
+           "engine": dict(gi_init_mode="heightfield",
+                          gi_rays_per_frame=16384, gi_straggler_budget=4)}
 
 
 def _rays():
@@ -55,6 +85,29 @@ def _rays():
 
 def _spec(cadence):
     return ref.with_render(WORLD, **CADENCES[cadence])
+
+
+def _fan(case):
+    """``tests/test_trace.py``'s straggler fan: 128 x 128 rays from an
+    open-air spot (a mix of quick converges, long marches and grazers),
+    flat; one ray fewer for the "below" case."""
+    h, w = FAN
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    dx = -0.6 + 1.4 * (xs / w)
+    dy = 0.55 - 1.3 * (ys / h)
+    dz = -0.6 + 1.4 * (ys / h)
+    n_ = np.sqrt(dx * dx + dy * dy + dz * dz + 1e-8)
+    z = np.zeros(h * w, np.float32)
+    rays = [z + 47.5, z + 36.0, z + 32.5, (dx / n_).reshape(-1),
+            (dy / n_).reshape(-1), (dz / n_).reshape(-1), z]
+    n = h * w - (case == "below")
+    return [np.ascontiguousarray(a[:n], np.float32) for a in rays]
+
+
+def _respite_spec(case):
+    budget, frac, extra = RESPITE[case]
+    return ref.with_render(WORLD, **{**CADENCES["bench"], **extra},
+                           straggler_budget=budget, straggler_cap_frac=frac)
 
 
 def _states(world, cadence):
@@ -92,8 +145,20 @@ def jax_ref():
     jobs.append(("ref_trace", dict(spec=CAPPED, world=world, rays=_rays(),
                                    shape=SHAPE)))
     keys.append(("trace", "capped"))
+    for case in RESPITE:
+        rays = _fan(case)
+        jobs.append(("ref_trace", dict(spec=_respite_spec(case), world=world,
+                                       rays=rays, shape=rays[0].shape)))
+        keys.append(("respite", case))
+    gi_world = engine.world_to_numpy(engine.build_world(
+        ref.make_ecfg(tcfg, GI_SPEC), verbose=False, device="cpu"))
+    jobs.append(("ref_gi_updates", dict(spec=GI_SPEC, world=gi_world,
+                                        windows=1, offset=GI_OFFSET,
+                                        stats=True)))
+    keys.append("gi")
     out = dict(zip(keys, ref.run(jobs)))
     out["world"] = world
+    out["gi_world"] = gi_world
     return out
 
 
@@ -130,6 +195,75 @@ def test_trace_capped_budget_bit_exact(jax_ref):
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(res, f).numpy(), want[f],
                                       err_msg=f)
+
+
+@pytest.mark.parametrize("case", list(RESPITE))
+def test_respite_bit_exact(jax_ref, case):
+    """The port's two-phase trace equals JAX's bit for bit on every traced
+    field and on ``degraded`` and ``exit_dir``; it engages exactly where
+    JAX's does (4 x 4096 rays)."""
+    ecfg = ref.make_ecfg(tcfg, _respite_spec(case))
+    w = engine.world_from_numpy(jax_ref["world"], device="cpu")
+    rays = [torch.from_numpy(a) for a in _fan(case)]
+    wavefront.reset_stats()
+    res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                          table=w.trace_table, sky_y=w.sky_y)
+    stats = wavefront.read_stats()
+    engaged = case != "below"
+    assert rays[0].numel() >= wavefront.RESPITE_MIN_RAYS or not engaged
+    assert stats["respites"] == engaged
+    assert stats["traces"] == 1 + engaged
+    want = jax_ref[("respite", case)]
+    for f in FIELDS + ("degraded", "exit_dir"):
+        np.testing.assert_array_equal(getattr(res, f).numpy(), want[f],
+                                      err_msg=f)
+    assert not want["exit_dir"].any()
+    # a cap of every lane holds every straggler; the tiny cap overflows
+    frac = RESPITE[case][1]
+    if frac >= 1.0:
+        assert not want["degraded"].any()
+    if case == "tiny":
+        assert want["degraded"].any()
+
+
+def test_respite_changes_its_not_hits(jax_ref):
+    """Against the single-phase trace of the same fan, the respite keeps
+    every hit flag and normal, and re-entry changes ``its`` of resumed
+    lanes (the documented accounting)."""
+    ecfg = ref.make_ecfg(tcfg, _respite_spec("b4_f1.0"))
+    w = engine.world_from_numpy(jax_ref["world"], device="cpu")
+    rays = [torch.from_numpy(a) for a in _fan("b4_f1.0")]
+    one = wavefront.trace(None, None, ecfg.world,
+                          dataclasses.replace(ecfg.render,
+                                              straggler_budget=0),
+                          *rays, table=w.trace_table, sky_y=w.sky_y)
+    two = jax_ref[("respite", "b4_f1.0")]
+    np.testing.assert_array_equal(one.hit.numpy(), two["hit"])
+    assert (one.its.numpy() != two["its"]).any()
+
+
+def test_gi_overflow_matches_jax(jax_ref):
+    """``update_gi(return_stats=True)`` on a 16 384-cell window with a
+    forced-tiny cap: the overflow count (a 0-d device tensor) and the GI
+    words equal JAX's."""
+    ecfg = ref.make_ecfg(tcfg, GI_SPEC)
+    w = engine.world_from_numpy(jax_ref["gi_world"], device="cpu")
+    gi, st = gi_update.update_gi(w.gi, w.bits, w.sdf, w.atlas, ecfg, 0,
+                                 GI_OFFSET, sky_y=w.sky_y,
+                                 table=w.trace_table, return_stats=True)
+    want_gi, want_overflow = jax_ref["gi"]
+    assert st["straggler_overflow"].ndim == 0
+    assert int(st["straggler_overflow"]) == want_overflow[0] > 0
+    np.testing.assert_array_equal(u32.to_numpy(gi), want_gi)
+
+
+@pytest.mark.parametrize("n,frac,slots", [(16384, 0.25, 4096),
+                                          (32768, 0.25, 8192),
+                                          (16384, 1.0, 16384),
+                                          (16385, 1.0, 20480),
+                                          (20000, 1e-6, 4096)])
+def test_respite_slots(n, frac, slots):
+    assert wavefront.respite_slots(n, frac) == slots
 
 
 @pytest.mark.parametrize("budget,k,cap", [(2048, 1, 2048), (13, 4, 16),

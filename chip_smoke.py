@@ -27,39 +27,57 @@ is printed.
    world, temporal reconstruction at scale 1, 2 warm-up and 6 timed frames;
 5. full rate (main path): the viewer's path, ``Engine.step`` +
    ``temporal_upscale``, 2 warm-up and 4 timed frames;
-6. respite cost: one GI window with straggler budget 12 and with 0, timed
+6. traced GI init (main path): ``config_stage4``'s GI init on the same
+   world (stage 4's): one sun-shadow ray per GI cell through K1, at stride
+   (1, 1) all 2^24 cells in one trace and at (2, 2) 2^22, each timed; K1 on
+   the 2^24-lane trace against its plain loop (bit for bit, with its graph
+   time and count-once bound), and the init's words against those of the
+   plain path;
+7. CLI (main path): ``python -m rvgrt_tpu_torch.driver.cli --config stage4
+   --frames 6 --fly --upscale temporal --out <tmp>`` through ``cli.main``:
+   a second 1024^3 world with the traced init, ``Engine.step`` frames at
+   1920x1080, the 3x upscale to 5760x3240 through K2, and the native PNG
+   sink (built with g++); 6 PNGs written, K1 launches == traces;
+8. respite cost: one GI window with straggler budget 12 and with 0, timed
    as the main path pays for it (CUDA events around ``update_gi``);
-7. reference: on a 64^3 world at 128x80, on the GPU and on the CPU (where
+9. reference: on a 64^3 world at 128x80, on the GPU and on the CPU (where
    every kernel is its plain PyTorch version, which the CPU test suite holds
    against the JAX package): the full-rate path for 3 frames and the frame
    loop for 6 (checkerboard and quarter frames, 16 384-cell GI windows that
    engage the respite); worlds and GI words bit-exact, >= 50 dB and exact
    hit classification on every base and reconstructed frame;
-8. kernels: K1, K2 and K3 against their plain versions on the inputs the
+10. gather probe (main path): ``tools/probe_r7.py``, P1 and P2 from tables
+   of 2-100 MiB and the library gather beside them, each kernel bit for bit
+   against its plain version; the card's shared-memory and L2 limits;
+11. kernels: K1, K2 and K3 against their plain versions on the inputs the
    main path gives them, with their times, the least time the card could
    take (``bound_ms``, from this run's data) and the main path's launch
    counts.  K1 on the checkerboard primary trace (superstep by superstep,
    and whole in one launch; its row's times and bound), the quarter primary
    trace, a GI window's respite phase 1 (budget 12) and phase 2, config-4's
    checkerboard and quarter primary traces and the full-rate path's primary
-   trace, each bit-exact and graph-timed; K2 at the headline's (2400,
-   3840) and config-4's (1080, 1920) histories; K3 at the world build's
-   four passes and at the 2048^3 world's coarse shape.
+   trace, each bit-exact and graph-timed (and the GI init's, phase 6); K2 at
+   the headline's (2400, 3840), config-4's (1080, 1920) and the CLI's
+   (3240, 5760) histories; K3 at the world build's four passes and at the
+   2048^3 world's coarse shape.  P1's and P2's rows are phase 10's, at the
+   100 MiB table.
 
 Launch accounting: ``wavefront.stats["traces"]`` counts each phase of a
 two-phase trace as a trace, so on every path K1 launches == traces.
 Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
-line sums each kernel's launches over the build and the three frame paths.
+line sums each kernel's launches over the build, the three frame paths, the
+GI init, the CLI and the probe's gathers.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
 as the main path pays it.  The last lines are the JSON kernel table,
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.
 
-The options shrink the run for debugging (``--cube 8 --frames 3``); the
-defaults are the headline configuration.  ``--profile N`` adds, at the
-end, N headline frames and 2 full-rate frames, each under its own
+The options shrink the run for debugging (``--cube 8 --frames 3``; the
+CLI phase stays at stage 4); the defaults are the headline configuration.
+``--profile N`` adds, at the end, N headline frames and 2 full-rate
+frames, each under its own
 ``torch.profiler``: per frame its tier, the device's busy time, idle share
 and launches, and the kernels that took the most device time.
 """
@@ -134,76 +152,31 @@ def reference_loop_config():
         gi_rays_per_frame=16384)
 
 
-def kernel_modules():
-    from rvgrt_tpu_torch.ops import sdf_kernels, superstep_kernel, warp_kernels
+#: each kernel's launch counter: (module under rvgrt_tpu_torch.ops, name)
+COUNTERS = {"K1": ("superstep_kernel", "launches"),
+            "K2": ("warp_kernels", "launches"),
+            "K3": ("sdf_kernels", "launches"),
+            "P1": ("gather_kernels", "take_clip_launches"),
+            "P2": ("gather_kernels", "take_along_cols_launches")}
 
-    return {"K1": superstep_kernel, "K2": warp_kernels, "K3": sdf_kernels}
+
+def _counter(k: str):
+    import importlib
+
+    mod, name = COUNTERS[k]
+    return importlib.import_module(f"rvgrt_tpu_torch.ops.{mod}"), name
 
 
 def reset_counts() -> None:
     from rvgrt_tpu_torch.trace import wavefront
 
-    for m in kernel_modules().values():
-        m.launches = 0
+    for k in COUNTERS:
+        setattr(*_counter(k), 0)
     wavefront.reset_stats()
 
 
 def read_counts() -> dict:
-    return {k: m.launches for k, m in kernel_modules().items()}
-
-
-def timed_ms(fn, dev, reps: int = 7, warmup: int = 2, setup=None) -> float:
-    """Median time of ``fn(setup())`` over ``reps`` runs after ``warmup``;
-    only ``fn`` is inside the timer."""
-    from rvgrt_tpu_torch.utils.timer import Timer
-
-    times = []
-    for i in range(warmup + reps):
-        arg = setup() if setup is not None else None
-        with Timer("", verbose=False, device=dev) as t:
-            fn(arg)
-        if i >= warmup:
-            times.append(t.elapsed_ms)
-    return statistics.median(times)
-
-
-def graph_ms(fn, dev, calls: int = 1, reps: int = 7, warmup: int = 2,
-             setup=None) -> float:
-    """The device's time for one ``fn()``: ``calls`` calls of ``fn`` are
-    captured once into a CUDA graph, and the median CUDA-event time of a
-    replay over ``reps`` replays after ``warmup`` is divided by ``calls``.
-    A replay launches every kernel from the device's own queue, so the
-    host's cost of making each launch (Python, ctypes, the wrapper's
-    checks) is left out.  ``setup`` runs before the capture and before each
-    replay, outside the timer: it refreshes what ``fn`` updates in place."""
-    import torch
-
-    from rvgrt_tpu_torch.utils.timer import Timer
-
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
-        if setup is not None:
-            setup()
-        fn()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    torch.cuda.synchronize(dev)
-    if setup is not None:
-        setup()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    times = []
-    for i in range(warmup + reps):
-        if setup is not None:
-            setup()
-        with Timer("", verbose=False, device=dev) as t:
-            graph.replay()
-        if i >= warmup:
-            times.append(t.elapsed_ms / calls)
-    del graph
-    return statistics.median(times)
+    return {k: getattr(*_counter(k)) for k in COUNTERS}
 
 
 def p90(values) -> float:
@@ -443,6 +416,7 @@ def respite_cost(eng, dev, offsets) -> dict:
     the first offset, the device's busy time and launches of one call
     under ``torch.profiler``, which split the cost into device and host."""
     from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.utils.timer import timed_ms
 
     w = eng.world
     out = {}
@@ -695,6 +669,7 @@ def check_k1_trace(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
     for bit on all 11 state arrays and on ``steps``; with the launch's
     graph-timed device ms."""
     from rvgrt_tpu_torch.ops import superstep_kernel as k1
+    from rvgrt_tpu_torch.utils.timer import graph_ms
 
     sp = {k: v.clone() for k, v in s0.items()}
     want = int(k1.trace_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y))
@@ -716,18 +691,19 @@ def check_k1_trace(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
                 steps=got, ms=ms, max_abs_err=err, bit_exact=True)
 
 
-def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
-    """K1 against the plain loop on the checkerboard primary trace, the
-    largest trace of the headline's frames (config-4's checkerboard and
-    the full-rate path's primary traces are about twice its size, and
-    ``check_k1_trace`` holds them): superstep by superstep (``fused_superstep``, a
-    budget of one superstep a launch) and the whole trace in one launch
-    (``trace_supersteps``), bit for bit on all 11 state arrays and on
-    ``steps``; with its graph time, event time, plain time and bound."""
+def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev, plain_reps: int = 3,
+             what: str = "the checkerboard primary trace") -> dict:
+    """K1 against the plain loop on one captured trace (``what``; the row's
+    is the headline's checkerboard primary trace): superstep by superstep
+    (``fused_superstep``, a budget of one superstep a launch) and the whole
+    trace in one launch (``trace_supersteps``), bit for bit on all 11 state
+    arrays and on ``steps``; with its graph time, event time, plain time
+    (``plain_reps`` runs) and bound."""
     import torch
 
     from rvgrt_tpu_torch.ops import superstep_kernel as k1
     from rvgrt_tpu_torch.trace import wavefront as wf
+    from rvgrt_tpu_torch.utils.timer import graph_ms, timed_ms
 
     n = s0["flags"].numel()
 
@@ -777,8 +753,8 @@ def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
     event_ms = timed_ms(lambda s: k1.trace_supersteps(
         cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, setup=fresh)
     plain_ms = timed_ms(lambda s: k1.trace_plain(
-        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, reps=3, warmup=1,
-        setup=fresh)
+        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, reps=plain_reps,
+        warmup=1 if plain_reps > 1 else 0, setup=fresh)
     moved = k1_trace_bytes(s0, sp, read, gathered)
     t_bytes = moved["total"] / HBM_BYTES_PER_S
     t_ops = ops_total / INT32_OPS_PER_S
@@ -793,8 +769,8 @@ def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
                 table_words_gathered=int(gathered.sum()),
                 library_ms=None, max_abs_err=max_err, steps=steps,
                 lanes=n, budget=rcfg.max_supersteps, bit_exact=True,
-                shape=f"{n} lanes, {steps} supersteps (the checkerboard "
-                      f"primary trace, one launch)")
+                shape=f"{n} lanes, {steps} supersteps ({what}, one "
+                      f"launch)")
 
 
 def check_k2(state, motion, dev) -> dict:
@@ -804,6 +780,7 @@ def check_k2(state, motion, dev) -> dict:
 
     from rvgrt_tpu_torch.ops import warp_kernels as k2
     from rvgrt_tpu_torch.upscale import temporal
+    from rvgrt_tpu_torch.utils.timer import graph_ms, timed_ms
 
     packed, x, y, _ = temporal.warp_inputs(state, motion)
     got, ovf = k2.warp_packed_bilinear(packed, x, y)
@@ -884,6 +861,7 @@ def k3_pass(d, axis: int, cap: int, dev, launch, calls: int = 5) -> dict:
     import torch
 
     from rvgrt_tpu_torch.ops import sdf_kernels as k3
+    from rvgrt_tpu_torch.utils.timer import graph_ms
 
     got = launch(d, axis, cap)
     best = k3.min_squares_plain(d, axis, cap)
@@ -940,6 +918,7 @@ def check_k3(eng, dev) -> dict:
     import torch
 
     from rvgrt_tpu_torch.ops import sdf_kernels as k3
+    from rvgrt_tpu_torch.utils.timer import timed_ms
 
     inputs = capture_k3_inputs(eng)
     assert len(inputs) == 4, [(tuple(d.shape), a, c) for d, a, c in inputs]
@@ -990,6 +969,153 @@ def check_k3(eng, dev) -> dict:
                       f"(build_sdf, axes 1 and 0)", passes=passes)
 
 
+def phase_gi_init(eng, dev, counts: dict) -> dict:
+    """The traced GI init of ``config_stage4`` (one sun-shadow ray per GI
+    cell, budget 0) on the headline's world, which is stage 4's
+    (``WorldConfig().with_cube(10)``): ``init_gi_strided`` at stride (1, 1),
+    all 2^24 cells in one trace, and at (2, 2), 2^22 cells, each a main-path
+    run with its own counts (``counts["gi_init_1x1"]``, ...) and its time
+    (CUDA events, host included; and the median of 3 more runs).  Then,
+    uncounted: K1 on the stride-(1, 1) trace against its plain loop
+    (``check_k1``: superstep by superstep and in one launch, bit for bit,
+    with its graph time and count-once bound), and the init's words against
+    those of the same init with every trace run by the plain loop."""
+    import torch
+
+    from rvgrt_tpu_torch.config import config_stage4
+    from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.ops import superstep_kernel
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.utils.timer import Timer, timed_ms
+
+    w = eng.world
+    ecfg = dataclasses.replace(config_stage4(), world=eng.ecfg.world)
+    assert ecfg.gi_straggler_budget == 0 and ecfg.gi_init_mode == "traced"
+
+    def init(stride):
+        return gi_update.init_gi_strided(w.bits, w.sdf, ecfg, sky_y=w.sky_y,
+                                         table=w.trace_table, stride=stride)
+
+    out, words = {"cells": ecfg.world.gi_num_cells}, {}
+    for stride in ((1, 1), (2, 2)):
+        key = f"{stride[0]}x{stride[1]}"
+        reset_counts()
+        with Timer("", verbose=False, device=dev) as t:
+            words[key] = init(stride)
+        c = counts[f"gi_init_{key}"] = read_counts()
+        st = wavefront.read_stats()
+        assert c["K1"] == st["traces"] == 1, (c, st)
+        out[f"stride_{key}"] = dict(
+            s=t.elapsed_ms / 1e3, warm_s=timed_ms(
+                lambda _: init(stride), dev, reps=3, warmup=0) / 1e3,
+            launches=c, traces=st["traces"], supersteps=st["supersteps"])
+        log(f"GI init, stride {key}: {out[f'stride_{key}']}")
+    lit = int(((words["1x1"] & 0xFFFFFF) != 0).sum())
+    assert 0 < lit < words["1x1"].numel(), lit
+    out["lit_share"] = lit / words["1x1"].numel()
+
+    calls = capture_k1(lambda: init((1, 1)))
+    assert len(calls) == 1 and calls[0][1]["flags"].numel() == \
+        ecfg.world.gi_num_cells, len(calls)
+    cfg = ecfg.world
+    out["k1"] = check_k1(cfg, w.trace_table, w.sky_y, *calls[0], dev,
+                         plain_reps=1, what="the traced GI init")
+    del calls
+    log(f"K1 on the GI init: {out['k1']}")
+
+    real = superstep_kernel.trace_supersteps
+    superstep_kernel.trace_supersteps = superstep_kernel.trace_plain
+    try:
+        with Timer("", verbose=False, device=dev) as t:
+            plain = init((1, 1))
+    finally:
+        superstep_kernel.trace_supersteps = real
+    assert torch.equal(plain, words["1x1"]), "the GI init's words differ " \
+        "from those of its plain path"
+    out["plain_path_s"] = t.elapsed_ms / 1e3
+    out["words_bit_exact"] = True
+    return out
+
+
+def phase_cli(dev, config: str, frames: int, counts: dict) -> tuple:
+    """The port's headless driver as a user runs it:
+    ``cli.main(["--config", config, "--frames", frames, "--fly",
+    "--upscale", "temporal", "--out", dir])`` - the world build with its
+    traced GI init, ``Engine.step`` frames, the 3x temporal upscale through
+    K2 and the native PNG sink - counted as one main path
+    (``counts["cli"]``).  Asserts the PNGs were written, K1 launches ==
+    traces and one K2 launch a frame.  Returns the report and the last
+    upscale's history state and motion (K2's inputs there)."""
+    import tempfile
+
+    import torch
+
+    from rvgrt_tpu_torch.driver import cli
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.upscale import temporal
+
+    real = temporal.temporal_upscale
+    last = {}
+
+    def hook(color, motion, depth, jitter, state, **kw):
+        last.update(state=state, motion=motion)
+        return real(color, motion, depth, jitter, state, **kw)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        temporal.temporal_upscale = hook
+        reset_counts()
+        try:
+            stats = cli.main(["--config", config, "--frames", str(frames),
+                              "--fly", "--upscale", "temporal", "--out",
+                              out_dir])
+            torch.cuda.synchronize(dev)
+        finally:
+            temporal.temporal_upscale = real
+        c = counts["cli"] = read_counts()
+        st = wavefront.read_stats()
+        pngs = sorted(Path(out_dir).glob("*.png"))
+        head = pngs[-1].read_bytes()[:24] if pngs else b""
+    assert stats["written"] == len(pngs) == frames, (stats, len(pngs))
+    assert head[:8] == b"\x89PNG\r\n\x1a\n", head
+    size = (int.from_bytes(head[16:20], "big"),
+            int.from_bytes(head[20:24], "big"))
+    hh, hw = last["state"].history.shape[:2]
+    assert size == (hw, hh), (size, (hw, hh))
+    assert c["K1"] == st["traces"] > 0 and c["K2"] == frames, (c, st)
+    report = dict(stats, config=config, frames=frames, png_size=size,
+                  launches=c, traces=st["traces"],
+                  supersteps=st["supersteps"],
+                  frame_ms_median=statistics.median(stats["frame_ms"][1:]
+                                                    or stats["frame_ms"]))
+    return report, last
+
+
+def phase_probe(dev, counts: dict) -> dict:
+    """The gather probe (``tools/probe_r7.py``): P1 and P2 at each table
+    size of its ladder, the library gather and the small-table reference
+    ladder, each kernel bit for bit against its plain version.  Only the
+    gathers themselves are counted (``counts["probe"]``).  Returns the
+    checks of P1 and P2 (the kernel line's numbers are those of the 100 MiB
+    table, the ladder's largest; every size is under ``sizes``) and the
+    card's limits."""
+    from rvgrt_tpu_torch.tools import probe_r7
+
+    res = probe_r7.run(dev, counts=(reset_counts, read_counts))
+    counts["probe"] = res["launches"]
+    n_ladder, n_ref = len(probe_r7.SIZES_MB), len(probe_r7.REF_MB)
+    assert res["launches"]["P1"] == n_ladder + n_ref and \
+        res["launches"]["P2"] == n_ladder, res["launches"]
+    checks = {}
+    for k in ("P1", "P2"):
+        rows = [r for r in res["rows"] if r["kernel"] == k]
+        main = next(r for r in rows if r["kind"] == "ladder"
+                    and r["table_mib"] == max(probe_r7.SIZES_MB))
+        checks[k] = dict(main, shape=f"{main['table']} table "
+                         f"({main['table_mib']} MiB), {main['idx']} indices",
+                         sizes=rows)
+    return dict(checks=checks, limits=res["limits"], skipped=res["skipped"])
+
+
 KERNELS = {
     "K1": dict(name="trace_supersteps",
                source="rvgrt_tpu_torch/csrc/superstep_kernel.cu",
@@ -1000,11 +1126,18 @@ KERNELS = {
     "K3": dict(name="minconv_pass",
                source="rvgrt_tpu_torch/csrc/sdf_kernels.cu",
                replaces="rvgrt_tpu/ops/sdf_kernels.py:82"),
+    "P1": dict(name="take_clip",
+               source="rvgrt_tpu_torch/csrc/gather_kernels.cu",
+               replaces="scripts/probe_r7.py:103"),
+    "P2": dict(name="take_along_cols",
+               source="rvgrt_tpu_torch/csrc/gather_kernels.cu",
+               replaces="scripts/probe_r7.py:126"),
 }
 
 
 def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
-        profile: int = 0) -> dict:
+        profile: int = 0, cli_config: str = "stage4",
+        cli_frames: int = 6) -> dict:
     import torch
 
     from rvgrt_tpu_torch.driver import engine
@@ -1113,6 +1246,18 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     del outs
     lap("full_rate")
 
+    # ---- main path: the traced GI init, 2^24 lanes in one trace ----
+    report["gi_init"] = phase_gi_init(eng, dev, counts)
+    report["gi_init"]["heightfield_init_s"] = \
+        phase_times["initializing GI"]
+    lap("gi_init")
+
+    # ---- main path: the CLI, the port's headless driver ----
+    report["cli"], cli_last = phase_cli(dev, cli_config, cli_frames,
+                                        counts)
+    log(f"CLI: {report['cli']}")
+    lap("cli")
+
     # ---- the respite's cost on the card: the headline's first two
     # windows ----
     report["respite_cost"] = respite_cost(eng, dev,
@@ -1124,6 +1269,12 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     report["reference"] = phase_reference(dev)
     log(f"reference: {report['reference']}")
     lap("reference")
+
+    # ---- main path: the gather probe's ladder (P1, P2) ----
+    probe = phase_probe(dev, counts)
+    report["probe"] = {k: probe[k] for k in ("limits", "skipped")}
+    log(f"probe: {probe}")
+    lap("probe")
 
     # ---- each kernel against its plain version on the main path's
     # inputs (these launches are not counted) ----
@@ -1137,15 +1288,17 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
                                               *k1_in[name], dev)
                          for name in ("quarter", "gi_phase1", "gi_phase2",
                                       "c4_checker", "c4_quarter", "full")})
+    k1["traces"]["gi_init"] = report["gi_init"]["k1"]
     log(f"K1: {k1}")
     del k1_in
     lap("check_k1")
     k2 = check_k2(head["loop"].state, last.out.motion, dev)
     k2["config4"] = check_k2(c4["loop"].state, c4["results"][-1].out.motion,
                              dev)
-    del head, c4
+    k2["cli"] = check_k2(cli_last["state"], cli_last["motion"], dev)
+    del head, c4, cli_last
     lap("check_k2")
-    checks = {"K1": k1, "K2": k2, "K3": check_k3(eng, dev)}
+    checks = {"K1": k1, "K2": k2, "K3": check_k3(eng, dev), **probe["checks"]}
     lap("check_k3")
     launches = {k: sum(c[k] for c in counts.values()) for k in KERNELS}
     table = []
@@ -1216,8 +1369,8 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
     print(json.dumps({k: report[k] for k in (
-        "build", "headline", "config4", "full_rate", "respite_cost",
-        "phase_wall_s", "wall_s")}), flush=True)
+        "build", "headline", "config4", "full_rate", "gi_init", "cli",
+        "respite_cost", "probe", "phase_wall_s", "wall_s")}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

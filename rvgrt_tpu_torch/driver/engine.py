@@ -99,9 +99,6 @@ def build_world(ecfg: EngineConfig, verbose: bool = True,
     cfg = ecfg.world
     if ecfg.render.gi_fused_cone:
         raise NotImplementedError("gi_fused_cone is not ported")
-    if init_gi and ecfg.gi_init_mode != "heightfield":
-        raise NotImplementedError("only gi_init_mode='heightfield' is "
-                                  "ported")
 
     @contextlib.contextmanager
     def phase(name):
@@ -122,7 +119,12 @@ def build_world(ecfg: EngineConfig, verbose: bool = True,
         sky_y = voxel_grid.sky_limit(bits, cfg)
     if init_gi:
         with phase("initializing GI"):
-            gi = gi_update.init_gi_heightfield(bits, ecfg)
+            if ecfg.gi_init_mode == "heightfield":
+                gi = gi_update.init_gi_heightfield(bits, ecfg)
+            else:
+                gi = gi_update.init_gi_strided(bits, sdf, ecfg, sky_y=sky_y,
+                                               table=table,
+                                               stride=ecfg.gi_init_stride)
     else:
         gi = gi_grid.zeros(cfg, dev)
     return World(bits=bits, sdf=sdf, gi=gi, atlas=atlas, sky_y=sky_y,

@@ -22,11 +22,14 @@ same frames.  Per frame ``i``:
 The poses come from the caller: ``path_yaws`` is ``bench.py``'s camera path
 (``:263-290``) and ``path_cameras`` turns it into per-frame cameras through
 a ``Character``, which supplies the view-projection matrices and the
-jitter, as ``Engine.step`` does.  Two things of ``bench.py`` are not
-copied: its cameras carry identity matrices (every motion vector 0), and
-it passes frame 0 to every GI window; here the matrices are the
-Character's and the GI frame number is the frame index.  Its extra warm-up
-frames, which exist to compile graphs, have no counterpart.
+jitter, as ``Engine.step`` does.  Three things of ``bench.py`` are not
+copied: its cameras carry identity matrices (every motion vector 0), it
+passes frame 0 to every GI window, and it renders every frame with the
+water clock at ``time_s=0``; here the matrices are the Character's, the GI
+frame number is the frame index, and the water clock advances 1/60 s a
+frame (``path_cameras``), which changes the shade of water pixels, not the
+work.  Its extra warm-up frames, which exist to compile graphs, have no
+counterpart.
 """
 
 from __future__ import annotations

@@ -9,9 +9,12 @@ packages draw the same bits; the sphere direction is rejection-sampled over
 a fixed 8 attempts.
 
 The GI traces run the two-phase straggler respite when
-``gi_straggler_budget`` > 0 (``bench.py`` runs 12).  The GI init is the
-ray-free heightfield one (``init_gi_heightfield``).  Not ported yet: the
-traced ``init_gi``, ``init_gi_chunked`` and ``init_gi_strided``.
+``gi_straggler_budget`` > 0 (``bench.py`` runs 12).  The GI init is either
+traced (``init_gi`` / ``init_gi_chunked`` / ``init_gi_strided``: one
+sun-shadow ray per cell, the reference's ``InitialGlobalIlluminate``,
+``CoarseArray.cu:211-245``) or the ray-free heightfield one
+(``init_gi_heightfield``).  Each traced slice is one ``wavefront.trace``
+call: one K1 launch, or two when the respite engages.
 """
 
 from __future__ import annotations
@@ -73,6 +76,107 @@ def random_sphere_dirs(seed, attempts: int = 8):
     inv = 1.0 / torch.sqrt(torch.clamp_min(px * px + py * py + pz * pz,
                                            1e-12))
     return px * inv, py * inv, pz * inv
+
+
+def _gi_rcfg(ecfg: EngineConfig):
+    """The GI traces' render config: the straggler respite at
+    ``gi_straggler_budget`` when it is > 0."""
+    if ecfg.gi_straggler_budget > 0:
+        return dataclasses.replace(ecfg.render,
+                                   straggler_budget=ecfg.gi_straggler_budget)
+    return ecfg.render
+
+
+def _init_cells(bits, sdf, ecfg: EngineConfig, idx, sky_y=None,
+                table=None) -> torch.Tensor:
+    """Init words for a (2-D) batch of GI cell indices: one sun-shadow ray
+    per cell from its centre, sunlit cells at the sun colour
+    (InitialGlobalIlluminate semantics).  Returns words of ``idx``'s
+    shape."""
+    cfg, lcfg = ecfg.world, ecfg.lighting
+    wx, wy, wz = gi_grid.cell_world_centers(cfg, idx)
+    sun = lcfg.sun_dir
+    res = wavefront.trace(bits, sdf, cfg, _gi_rcfg(ecfg), wx, wy, wz,
+                          torch.full_like(wx, sun[0]),
+                          torch.full_like(wx, sun[1]),
+                          torch.full_like(wx, sun[2]),
+                          torch.full_like(wx, 0.0001), sky_y=sky_y,
+                          table=table)
+    lit = ~res.hit
+    r = torch.where(lit, lcfg.sun_color[0], 0.0)
+    g = torch.where(lit, lcfg.sun_color[1], 0.0)
+    b = torch.where(lit, lcfg.sun_color[2], 0.0)
+    return gi_grid.pack_rgba8(r, g, b)
+
+
+def init_gi(bits, sdf, ecfg: EngineConfig, sky_y=None, table=None,
+            offset: int = 0, count: int | None = None) -> torch.Tensor:
+    """One sun-shadow ray per cell of the slice ``[offset, offset +
+    count)`` (the whole grid by default), in one trace."""
+    count = ecfg.world.gi_num_cells if count is None else count
+    idx = offset + torch.arange(count, dtype=_I32, device=bits.device)
+    # 2-D ray batch, the JAX package's layout
+    idx = idx.reshape(-1, min(count, 4096))
+    return _init_cells(bits, sdf, ecfg, idx, sky_y=sky_y,
+                       table=table).reshape(-1)
+
+
+def init_gi_chunked(bits, sdf, ecfg: EngineConfig, sky_y=None, table=None,
+                    chunk: int = 1 << 24) -> torch.Tensor:
+    """The whole grid's init in slices of at most ``chunk`` cells, one
+    trace each.  A tail shorter than a chunk is traced as a window of
+    ``pad`` cells anchored at ``cells - pad`` (the JAX package's rule), so
+    its leading cells repeat ones already traced and are dropped."""
+    cells = ecfg.world.gi_num_cells
+    if cells <= chunk:
+        return init_gi(bits, sdf, ecfg, sky_y=sky_y, table=table)
+    full = cells - cells % chunk
+    parts = [init_gi(bits, sdf, ecfg, sky_y=sky_y, table=table, offset=off,
+                     count=chunk) for off in range(0, full, chunk)]
+    rem = cells - full
+    if rem:
+        pad = min(-(-rem // 4096) * 4096, chunk)
+        tail = init_gi(bits, sdf, ecfg, sky_y=sky_y, table=table,
+                       offset=cells - pad, count=pad)
+        parts.append(tail[pad - rem:])
+    return torch.cat(parts)
+
+
+def init_gi_strided(bits, sdf, ecfg: EngineConfig, sky_y=None, table=None,
+                    stride=(2, 2), chunk: int = 1 << 24) -> torch.Tensor:
+    """The init from a strided sun-visibility lattice: one ray per
+    (stride_x x stride_z) block of cells, replicated to its neighbours
+    (nearest); stride (1, 1) is ``init_gi_chunked``.  The lattice is
+    padded to whole rows of 4096 rays with copies of its last cell."""
+    cfg = ecfg.world
+    sx, sz = stride
+    if sx <= 1 and sz <= 1:
+        return init_gi_chunked(bits, sdf, ecfg, sky_y=sky_y, table=table,
+                               chunk=chunk)
+    dev = bits.device
+    nx, ny, nz = cfg.gi_size_x, cfg.gi_size_y, cfg.gi_size_z
+    nxc, nzc = -(-nx // sx), -(-nz // sz)
+    gx = torch.clamp_max(sx // 2 + sx * torch.arange(nxc, dtype=_I32,
+                                                     device=dev), nx - 1)
+    gz = torch.clamp_max(sz // 2 + sz * torch.arange(nzc, dtype=_I32,
+                                                     device=dev), nz - 1)
+    gy = torch.arange(ny, dtype=_I32, device=dev)
+    idx = gi_grid.cell_index(cfg, gx[None, None, :], gy[None, :, None],
+                             gz[:, None, None]).reshape(-1)
+    total = idx.numel()
+    step = min(chunk, -(-total // 4096) * 4096)
+    pad = -(-total // 4096) * 4096 - total
+    if pad:
+        idx = torch.cat([idx, idx[-1:].expand(pad)])
+    parts = [_init_cells(bits, sdf, ecfg,
+                         idx[off:off + step].reshape(-1, 4096), sky_y=sky_y,
+                         table=table).reshape(-1)
+             for off in range(0, total + pad, step)]
+    words = torch.cat(parts)[:total].reshape(nzc, ny, nxc)
+    # nearest replication back to the full lattice
+    words = torch.repeat_interleave(words, sz, dim=0)[:nz]
+    words = torch.repeat_interleave(words, sx, dim=2)[:, :, :nx]
+    return words.reshape(-1)
 
 
 def _shift_zero(a: torch.Tensor, oz: int, ox: int) -> torch.Tensor:
@@ -143,10 +247,8 @@ def update_gi(gi: torch.Tensor, bits, sdf, atlas, ecfg: EngineConfig,
     4096 cells).  ``return_stats``: also return ``{"straggler_overflow":
     0-d int32 tensor}``, the rays of this window that overflowed the
     respite's slots and read as misses; it stays on the device."""
-    cfg, lcfg, rcfg = ecfg.world, ecfg.lighting, ecfg.render
-    if ecfg.gi_straggler_budget > 0:
-        rcfg = dataclasses.replace(rcfg,
-                                   straggler_budget=ecfg.gi_straggler_budget)
+    cfg, lcfg = ecfg.world, ecfg.lighting
+    rcfg = _gi_rcfg(ecfg)
     n = ecfg.gi_window
     dev = gi.device
     if table is None:

@@ -28,8 +28,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lib.cu", "sdf_kernels.cu", "superstep_kernel.cu",
-           "warp_kernels.cu")
+SOURCES = ("gather_kernels.cu", "lib.cu", "sdf_kernels.cu",
+           "superstep_kernel.cu", "warp_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 
@@ -126,6 +126,12 @@ def _declare(lib) -> None:
                         + [vp, vp], ci),
         "rvgrt_warp_bilinear": ([vp] * 4 + [ci, ci, cll, vp], ci),
         "rvgrt_minconv_mid": ([vp, vp, ci, ci, cll, ci, vp], ci),
+        "rvgrt_take_clip": ([vp, cll, vp, vp, cll, vp], ci),
+        "rvgrt_take_clip_l2": ([vp, cll, vp, vp, cll, cll, ctypes.c_float,
+                                vp], ci),
+        "rvgrt_set_persisting_l2": ([cll], ci),
+        "rvgrt_take_along_cols": ([vp, ci, ci, vp, vp, cll, vp], ci),
+        "rvgrt_device_limits": ([ci, vp], ci),
     }
     for name, (args, res) in sigs.items():
         fn = getattr(lib, name)

@@ -211,8 +211,8 @@ def rates(so: Path, dev) -> dict:
     (graph-timed), and per SM and clock at 1.98 GHz."""
     import torch
 
-    import chip_smoke
     from rvgrt_tpu_torch.ops import _lib
+    from rvgrt_tpu_torch.utils.timer import graph_ms
 
     fn = ctypes.CDLL(str(so)).rvgrt_rate
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -228,7 +228,7 @@ def rates(so: Path, dev) -> dict:
                      _lib.stream_ptr(dev))
             if err:
                 raise RuntimeError(f"rate probe {name}: CUDA error {err}")
-        ms = chip_smoke.graph_ms(go, dev, calls=3)
+        ms = graph_ms(go, dev, calls=3)
         ops = blocks * threads * iters * 8
         res[name] = {"ms": ms, "ops_per_s": ops / ms * 1e3,
                      "per_sm_clock_at_1.98GHz": ops / ms * 1e3 / sms
@@ -286,6 +286,7 @@ def main(argv=None) -> int:
     from rvgrt_tpu_torch.config import WorldConfig
     from rvgrt_tpu_torch.driver import engine
     from rvgrt_tpu_torch.ops import _lib, sdf_kernels
+    from rvgrt_tpu_torch.utils.timer import timed_ms
     from rvgrt_tpu_torch.world import sdf, voxel_grid
 
     card = subprocess.run(
@@ -343,7 +344,7 @@ def main(argv=None) -> int:
             # the world build's SDF phase, its four passes through launch
             real, sdf_kernels.minconv_pass = sdf_kernels.minconv_pass, launch
             try:
-                row["sdf_phase_ms"] = chip_smoke.timed_ms(
+                row["sdf_phase_ms"] = timed_ms(
                     lambda _: engine._sdf_phase_fn(bits, cfg), dev, reps=5,
                     warmup=1)
             finally:

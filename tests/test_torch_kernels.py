@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
 K1 (the tracer: a whole trace in one launch, and one superstep per launch),
-K2 (history warp) and K3 (SDF min-plus pass) at small shapes: a 64^3 world
-built by the port, random rays, a random packed history.  Also on the card
-against the CPU: the two-phase straggler respite (two K1 launches, no host
-read) and checkerboard and quarter-rate frames.  Every test here
+K2 (history warp), K3 (SDF min-plus pass), and P1 and P2 (the gather
+probe's flat clamped take and per-column take) at small shapes: a 64^3
+world built by the port, random rays, a random packed history, random
+tables and indices.  Also on the card against the CPU: the two-phase
+straggler respite (two K1 launches, no host read), checkerboard and
+quarter-rate frames, and the traced GI init.  Every test here
 needs a CUDA GPU and skips without one (a CUDA kernel has no interpret
 mode).  The file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed; the suite's
@@ -26,7 +28,9 @@ import torch
 from rvgrt_tpu_torch import config as tcfg
 from rvgrt_tpu_torch.core import u32
 from rvgrt_tpu_torch.driver import engine
-from rvgrt_tpu_torch.ops import sdf_kernels, superstep_kernel, warp_kernels
+from rvgrt_tpu_torch.gi import update as gi_update
+from rvgrt_tpu_torch.ops import (gather_kernels, sdf_kernels,
+                                 superstep_kernel, warp_kernels)
 from rvgrt_tpu_torch.trace import wavefront
 from rvgrt_tpu_torch.world import sdf, voxel_grid
 
@@ -423,3 +427,65 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         warp_kernels.warp_packed_bilinear(
             torch.zeros(8, 8, dtype=torch.int32, device=cuda),
             torch.zeros(8, 4, device=cuda), torch.zeros(8, 4, device=cuda))
+    with pytest.raises(ValueError):
+        gather_kernels.take_clip(
+            torch.zeros(8, dtype=torch.int32, device=cuda),
+            torch.zeros(8, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        gather_kernels.take_along_cols(
+            torch.zeros(8, 4, dtype=torch.int32, device=cuda),
+            torch.zeros(8, 3, dtype=torch.int32, device=cuda))
+
+
+#: the cases of the gather kernels: (table words, index shape, spread of
+#: the indices beyond [0, n)); 37 x 128 lanes is no multiple of the
+#: kernels' 256-thread block, 8192 x 128 is the probe's shape
+GATHER_CASES = {
+    "tiny": (5, (3, 7), 4),
+    "ragged": (1000, (37, 128), 300),
+    "probe": (8 * (1 << 20) // 4, (8192, 128), 1000),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_kernels_match_plain(cuda, case):
+    """P1 and P2 equal their plain versions bit for bit, one launch each,
+    indices outside the table included."""
+    n, shape, beyond = GATHER_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    tbl = u32.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.uint64)
+                         .astype(np.uint32), cuda)
+    idx = torch.from_numpy(rng.integers(-beyond, n + beyond, shape)
+                           .astype(np.int32)).to(cuda)
+    n0 = gather_kernels.take_clip_launches
+    got = gather_kernels.take_clip(tbl, idx)
+    assert gather_kernels.take_clip_launches == n0 + 1
+    assert torch.equal(got, gather_kernels.take_clip_plain(tbl, idx))
+    # the same kernel under an L2 access-policy window (the probe's
+    # measurement), half the table persisting
+    gather_kernels.set_persisting_l2(1 << 20)
+    try:
+        got = gather_kernels.take_clip_l2(tbl, idx, 4 * n, 0.5)
+    finally:
+        gather_kernels.set_persisting_l2(0)
+    assert torch.equal(got, gather_kernels.take_clip_plain(tbl, idx))
+    if n < 128:
+        return
+    t2, i2 = gather_kernels.tala_inputs(tbl, idx)
+    for ix in (i2, idx // 64):  # the probe's i2, and one out of range
+        n0 = gather_kernels.take_along_cols_launches
+        got = gather_kernels.take_along_cols(t2, ix)
+        assert gather_kernels.take_along_cols_launches == n0 + 1
+        assert torch.equal(got, gather_kernels.take_along_cols_plain(t2, ix))
+
+
+def test_traced_gi_init_gpu_matches_cpu(cuda, worlds):
+    """The traced GI init (K1) gives the CPU's words, at stride 1 and 2."""
+    ecfg = dataclasses.replace(_ecfg(), gi_init_mode="traced")
+    for stride in ((1, 1), (2, 2)):
+        got = {}
+        for w in worlds:
+            got[w.bits.device.type] = gi_update.init_gi_strided(
+                w.bits, w.sdf, ecfg, sky_y=w.sky_y, table=w.trace_table,
+                stride=stride).cpu()
+        assert torch.equal(got["cuda"], got["cpu"]), stride

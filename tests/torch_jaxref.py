@@ -31,6 +31,18 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 
+#: torch's intra-op threads in a test process that imports this module (not
+#: in the JAX child).  A parity test runs the port while its JAX child runs
+#: beside it, and the suite runs six workers on one host, so torch's
+#: default of a thread a core oversubscribes the cores; with 2 the port's
+#: parity files run no slower alone, and the JAX suite's longest file,
+#: which shares the host with them, gets more of it.
+TORCH_THREADS = 2
+if __name__ != "__main__":
+    import torch
+
+    torch.set_num_threads(TORCH_THREADS)
+
 #: the headline operating point of the port's slice (bench.py's defaults,
 #: gi_straggler_budget 0), cut to a 64^3 world and a 128x80 frame; 128x80
 #: divides by the prepass (8), shadow-site (4) and GI (16) divisors
@@ -52,6 +64,14 @@ def with_render(spec: dict, **render) -> dict:
     body)."""
     out = dict(spec)
     out["render"] = {**spec.get("render", {}), **render}
+    return out
+
+
+def merge_spec(spec: dict, over: dict) -> dict:
+    """``spec`` with the sections of ``over`` merged into its own."""
+    out = dict(spec)
+    for k, v in over.items():
+        out[k] = {**spec.get(k, {}), **v} if isinstance(v, dict) else v
     return out
 
 
@@ -180,8 +200,8 @@ def ref_generate(spec):
 
 
 def ref_world(spec):
-    """The engine's world build (heightfield GI init) as numpy arrays, plus
-    the coarse occupancy and column heights."""
+    """The engine's world build (the GI init of ``spec``) as numpy arrays,
+    plus the coarse occupancy and column heights."""
     from rvgrt_tpu.driver import engine
     from rvgrt_tpu.world import voxel_grid
 
@@ -193,6 +213,27 @@ def ref_world(spec):
                                                            ecfg.world))
     out["height"] = np.asarray(voxel_grid.column_height(w.bits, ecfg.world))
     return out
+
+
+def ref_gi_init(spec, cases):
+    """``ref_world`` of ``spec`` (with its GI init), and on that world's
+    arrays the words of ``init_gi_strided`` for each ``(overrides,
+    stride)`` of ``cases``, the overrides merged into ``spec`` with
+    ``merge_spec``."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.gi import update
+
+    world = ref_world(spec)
+    w = {k: jnp.asarray(world[k]) for k in ("bits", "sdf", "sky_y",
+                                            "trace_table")}
+    words = []
+    for over, stride in cases:
+        ecfg = make_ecfg(_cfg(), merge_spec(spec, over))
+        words.append(np.asarray(update.init_gi_strided(
+            w["bits"], w["sdf"], ecfg, sky_y=w["sky_y"],
+            table=w["trace_table"], stride=tuple(stride))))
+    return dict(world=world, words=words)
 
 
 def ref_trace(spec, world, rays, shape):

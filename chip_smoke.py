@@ -44,8 +44,9 @@ is printed.
    every kernel is its plain PyTorch version, which the CPU test suite holds
    against the JAX package): the full-rate path for 3 frames and the frame
    loop for 6 (checkerboard and quarter frames, 16 384-cell GI windows that
-   engage the respite); worlds and GI words bit-exact, >= 50 dB and exact
-   hit classification on every base and reconstructed frame;
+   engage the respite); and the frame loop for 4 on the non-cube 256x128x256
+   world (``NONCUBE_SHIFTS``); worlds and GI words bit-exact, >= 50 dB and
+   exact hit classification on every base and reconstructed frame;
 10. gather probe (main path): ``tools/probe_r7.py``, P1 and P2 from tables
    of 2-100 MiB and the library gather beside them, each kernel bit for bit
    against its plain version; the card's shared-memory and L2 limits;
@@ -58,24 +59,39 @@ is printed.
    checkerboard and quarter primary traces and the full-rate path's primary
    trace, each bit-exact and graph-timed (and the GI init's, phase 6); K2 at
    the headline's (2400, 3840), config-4's (1080, 1920) and the CLI's
-   (3240, 5760) histories; K3 at the world build's four passes and at the
-   2048^3 world's coarse shape.  P1's and P2's rows are phase 10's, at the
-   100 MiB table.
+   (3240, 5760) histories; K3 at the world build's four passes.  P1's and
+   P2's rows are phase 10's, at the 100 MiB table;
+12. the big worlds (main path; ``phase_big_world``, also run alone by
+   ``python3 -m rvgrt_tpu_torch.tools.big_world``), each alone on the card
+   once the 1024^3 engines are freed: the reference's own 4096x512x4096
+   world (bench.py's ``BENCH_REF_WORLD=1``) and the 2048^3 world
+   (``BENCH_CUBE=11``), each 2^33 voxels.  The build (wall time, phase
+   times, each phase's peak memory, under 80 GB); K3 bit for bit at its
+   four passes (2^30 coarse cells, and the far mip); for the reference
+   world the reference's traced GI init, eight 2^24-lane K1 traces, timed
+   whole and per trace, one slice held against the plain loop; bench.py's
+   frames (2 warm-up and 6 timed; the tier mix, K1 launches == traces, the
+   262 144-cell GI window with its respite); K1 bit for bit on the
+   checkerboard primary trace (with its bound) and on a GI window's respite
+   phases; the image and a non-zero hit share.  Their K1 traces and K3
+   passes join the kernel line's rows.
 
 Launch accounting: ``wavefront.stats["traces"]`` counts each phase of a
 two-phase trace as a trace, so on every path K1 launches == traces.
 Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
 line sums each kernel's launches over the build, the three frame paths, the
-GI init, the CLI and the probe's gathers.
+GI init, the CLI, the probe's gathers and the big worlds' builds, init and
+frames.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
 as the main path pays it.  The last lines are the JSON kernel table,
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.
 
-The options shrink the run for debugging (``--cube 8 --frames 3``; the
-CLI phase stays at stage 4); the defaults are the headline configuration.
+The options shrink the run for debugging (``--cube 8 --frames 3
+--worlds ''``; the CLI phase stays at stage 4); the defaults are the
+headline configuration and both big worlds.
 ``--profile N`` adds, at the end, N headline frames and 2 full-rate
 frames, each under its own
 ``torch.profiler``: per frame its tier, the device's busy time, idle share
@@ -114,9 +130,11 @@ def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
-def headline_config(cube: int, width: int, height: int, scale: int = 3):
+def headline_config(world, width: int, height: int, scale: int = 3):
     """bench.py's operating point, built the way bench.py builds it
-    (``dataclasses.replace`` on the defaults), at ``scale`` x display."""
+    (``dataclasses.replace`` on the defaults), at ``scale`` x display, on
+    ``world``: a WorldConfig, or the log2 edge of a cube (``BENCH_CUBE``).
+    ``WorldConfig()`` is its ``BENCH_REF_WORLD=1`` point."""
     from rvgrt_tpu_torch.config import (EngineConfig, LightingConfig,
                                         RenderConfig, WorldConfig)
 
@@ -126,8 +144,10 @@ def headline_config(cube: int, width: int, height: int, scale: int = 3):
         prepass_divisor=8, prepass_cascade=4, shadow_site_divisor=4,
         steps_per_check=1, dda_substeps=6, sdf_probe_interval=16,
         dist_bias=4.0, fused_superstep=True, gi_res_divisor=16)
+    if isinstance(world, int):
+        world = WorldConfig().with_cube(world)
     return EngineConfig(
-        world=WorldConfig().with_cube(cube), render=rcfg,
+        world=world, render=rcfg,
         lighting=dataclasses.replace(LightingConfig(), soft_shadows=True,
                                      soft_shadow_stride=2),
         gi_straggler_budget=GI_BUDGET, gi_init_mode="heightfield",
@@ -142,11 +162,21 @@ def native_config(ecfg, width: int, height: int):
         display_height=height))
 
 
-def reference_loop_config():
-    """The 64^3 frame-loop reference: the headline settings at 128x80,
-    with ``gi_coarseness=2`` so the GI grid (32^3 cells) holds 16 384-cell
-    windows, enough rays for the respite to engage (4 x 4096)."""
-    ecfg = headline_config(6, 128, 80)
+#: the non-cube world of the reference phase: x = z = 2 y, as the
+#: reference's 4096x512x4096 has x = z > y, with sky above the terrain
+NONCUBE_SHIFTS = (8, 7, 8)
+
+
+def reference_loop_config(shifts=(6, 6, 6)):
+    """The frame-loop reference: the headline settings at 128x80 on a world
+    of these (x, y, z) shifts (64^3 by default), with ``gi_coarseness=2``
+    so that the GI grid (32^3 cells at 64^3) holds 16 384-cell windows,
+    enough rays for the respite to engage (4 x 4096)."""
+    from rvgrt_tpu_torch.config import WorldConfig
+
+    sx, sy, sz = shifts
+    ecfg = headline_config(WorldConfig(shift_x=sx, shift_y=sy, shift_z=sz),
+                           128, 80)
     return dataclasses.replace(
         ecfg, world=dataclasses.replace(ecfg.world, gi_coarseness=2),
         gi_rays_per_frame=16384)
@@ -184,17 +214,19 @@ def p90(values) -> float:
     return v[min(len(v) - 1, int(math.ceil(0.9 * len(v))) - 1)]
 
 
-def headline_pose(eng) -> dict:
-    """bench.py's placement: 12 voxels above the terrain top of the world's
-    centre column, looking down 0.5 along +x, as a Character pose."""
+def headline_pose(bits, w) -> dict:
+    """bench.py's placement on the world of occupancy words ``bits`` and
+    WorldConfig ``w``: 12 voxels above the terrain top of the column at
+    x = z = size_x // 2 (bench.py takes both from size_x, which is the
+    centre while size_z == size_x), below the world's top, looking down 0.5
+    along +x, as a Character pose."""
     import numpy as np
     import torch
 
     from rvgrt_tpu_torch.core import u32
 
-    w = eng.ecfg.world
     cx = cz = w.size_x // 2
-    vol = eng.world.bits.reshape(w.size_z, w.size_y, w.size_x // 32)
+    vol = bits.reshape(w.size_z, w.size_y, w.size_x // 32)
     solid = (u32.lsr(vol[cz, :, cx // 32], cx % 32) & 1).bool()
     ys = torch.arange(w.size_y, device=solid.device)
     top = float(torch.where(solid, ys, -1).max()) if bool(solid.any()) \
@@ -439,14 +471,12 @@ def respite_cost(eng, dev, offsets) -> dict:
 
 
 def phase_reference(dev) -> dict:
-    """The full-rate path and the frame loop on a 64^3 world at 128x80, on
-    the GPU and on the CPU."""
+    """The full-rate path and the frame loop on a 64^3 world at 128x80, and
+    the frame loop on the non-cube world, on the GPU and on the CPU."""
     import numpy as np
 
-    from rvgrt_tpu_torch.core import u32
     from rvgrt_tpu_torch.driver import engine
     from rvgrt_tpu_torch.scene.camera import phase_jitter_sequence
-    from rvgrt_tpu_torch.trace import wavefront
 
     # the full-rate path, 3 frames
     ecfg = headline_config(6, 128, 80)
@@ -470,13 +500,34 @@ def phase_reference(dev) -> dict:
     full = {"world_bit_exact": True, "upscaled_psnr_db": db,
             "base_color_psnr_db": base_db, "hit_classification_equal": True}
 
-    # the frame loop, 6 frames, respite engaged
-    ecfg = reference_loop_config()
+    # the frame loop, 6 frames, respite engaged; and on the non-cube world
+    return {"full_rate": full,
+            "frame_loop": reference_loop(dev, reference_loop_config(), 4,
+                                         REF_POSE),
+            "frame_loop_" + "x".join(map(str, NONCUBE_SHIFTS)):
+                reference_loop(dev, reference_loop_config(NONCUBE_SHIFTS),
+                               2)}
+
+
+def reference_loop(dev, ecfg, frames: int, pose=None) -> dict:
+    """``frame_loop.WARMUP`` + ``frames`` frames of the frame loop of
+    ``ecfg`` from ``pose`` (bench.py's placement, ``headline_pose``, when
+    None) on the GPU and on the CPU: worlds, rates and GI words equal, the
+    respite engaged at every GI window, the hit classification equal and
+    >= 50 dB on every base and reconstructed frame."""
+    import numpy as np
+
+    from rvgrt_tpu_torch.core import u32
+    from rvgrt_tpu_torch.driver import engine
+    from rvgrt_tpu_torch.trace import wavefront
+
     loops = {}
     for d in (dev, "cpu"):
         world = engine.build_world(ecfg, verbose=False, device=d)
         wavefront.reset_stats()
-        run = run_loop(world, ecfg, REF_POSE, 4, d, scale=3)
+        run = run_loop(world, ecfg, pose or headline_pose(world.bits,
+                                                          ecfg.world),
+                       frames, d, scale=3)
         loops[str(d)] = (engine.world_to_numpy(world), run,
                          wavefront.read_stats())
     (wg, rg, sg), (wc, rc, sc) = loops[str(dev)], loops["cpu"]
@@ -488,20 +539,23 @@ def phase_reference(dev) -> dict:
     gi_g, gi_c = u32.to_numpy(rg["loop"].gi), u32.to_numpy(rc["loop"].gi)
     np.testing.assert_array_equal(gi_g, gi_c, err_msg="GI words")
     assert (gi_g != wc["gi"]).any(), "the GI windows changed nothing"
-    base_db, up_db = [], []
+    base_db, up_db, hits = [], [], []
     for a, b in zip(rg["results"], rc["results"]):
         assert bool((a.hit.cpu() == b.hit).all()), \
             "hit classification differs between GPU and CPU"
+        hits.append(float(b.hit.float().mean()))
         base_db.append(psnr(a.out.color, b.out.color))
         up_db.append(psnr(a.image, b.image))
     assert min(base_db) >= 50.0 and min(up_db) >= 50.0, (base_db, up_db)
-    return {"full_rate": full, "frame_loop": {
-        "world_bit_exact": True, "gi_words_bit_exact": True,
-        "rates": rg["rates"], "respites": sg["respites"],
-        "straggler_overflow": [int(rg["loop"].overflow),
-                               int(rc["loop"].overflow)],
-        "base_color_psnr_db": base_db, "upscaled_psnr_db": up_db,
-        "hit_classification_equal": True}}
+    assert max(hits) > 0.0, "every primary ray missed"
+    w = ecfg.world
+    return {"world": f"{w.size_x}x{w.size_y}x{w.size_z}",
+            "world_bit_exact": True, "gi_words_bit_exact": True,
+            "rates": rg["rates"], "respites": sg["respites"],
+            "straggler_overflow": [int(rg["loop"].overflow),
+                                   int(rc["loop"].overflow)],
+            "hit_share": hits, "base_color_psnr_db": base_db,
+            "upscaled_psnr_db": up_db, "hit_classification_equal": True}
 
 
 def capture_k1(fn) -> list:
@@ -849,6 +903,32 @@ def k3_tap_floor(d, best, axis: int, cap: int):
     return near, exit_
 
 
+def k3_plain(d, axis: int, cap: int, slab_cells: int = 1 << 26) -> tuple:
+    """K3's plain version of the pass over ``d`` along ``axis`` (its output)
+    and the tap floors (Σ, Σ_exit) summed over outputs, from the plain
+    min-plus squares.  It runs in slabs across an axis the pass does not run
+    along (z for axis 1, y for axis 0) of about ``slab_cells`` cells each,
+    so that its int32 temporaries stay near 2 GB at 2^30 cells."""
+    import torch
+
+    from rvgrt_tpu_torch.ops import sdf_kernels as k3
+
+    dim = 0 if axis == 1 else 1
+    n = d.shape[dim]
+    step = max(1, n * slab_cells // d.numel())
+    want = torch.empty_like(d)
+    taps = taps_exit = 0
+    for s0 in range(0, n, step):
+        part = d.narrow(dim, s0, min(step, n - s0))
+        best = k3.min_squares_plain(part, axis, cap)
+        want.narrow(dim, s0, part.shape[dim]).copy_(
+            torch.clamp_max(k3.isqrt(best), cap))
+        t, te = k3_tap_floor(part, best, axis, cap)
+        taps += int(t.sum(dtype=torch.int64))
+        taps_exit += int(te.sum(dtype=torch.int64))
+    return want, taps, taps_exit
+
+
 def k3_pass(d, axis: int, cap: int, dev, launch, calls: int = 5) -> dict:
     """One K3 pass through ``launch(d, axis, cap)`` against the plain
     version, bit for bit, with its graph-timed ms and its bound from this
@@ -860,20 +940,16 @@ def k3_pass(d, axis: int, cap: int, dev, launch, calls: int = 5) -> dict:
     this algorithm's.  Returns the stats and the kernel's output."""
     import torch
 
-    from rvgrt_tpu_torch.ops import sdf_kernels as k3
     from rvgrt_tpu_torch.utils.timer import graph_ms
 
     got = launch(d, axis, cap)
-    best = k3.min_squares_plain(d, axis, cap)
-    want = torch.clamp_max(k3.isqrt(best), cap).to(torch.uint8)
+    want, taps, taps_exit = k3_plain(d, axis, cap)
     same = torch.equal(got, want)
     diff = 0 if same else int((got.int() - want.int()).abs().max())
     assert same, f"K3 differs from its plain version on axis {axis}, " \
         f"cap {cap}, shape {tuple(d.shape)}: max abs {diff}"
+    del want
     cells = d.numel()
-    taps, taps_exit = (int(t.sum(dtype=torch.int64))
-                       for t in k3_tap_floor(d, best, axis, cap))
-    del best, want
     t_ops = taps * K3_OPS_PER_TAP / INT32_OPS_PER_S
     t_bytes = 2 * cells / HBM_BYTES_PER_S
     ms = graph_ms(lambda: launch(d, axis, cap), dev, calls=calls)
@@ -886,10 +962,11 @@ def k3_pass(d, axis: int, cap: int, dev, launch, calls: int = 5) -> dict:
                 mean_distance=int(got.sum(dtype=torch.int64)) / cells), got
 
 
-def capture_k3_inputs(eng) -> list:
+def capture_k3_inputs(bits, cfg) -> list:
     """The inputs of every K3 launch of the world build, as (input, axis,
     cap): ``build_sdf``'s two passes and ``extend_sdf_far``'s two, taken at
-    ``minconv_pass`` while the SDF phase runs again on the world's bits."""
+    ``minconv_pass`` while the SDF phase runs again on the world's
+    occupancy words ``bits``."""
     from rvgrt_tpu_torch.driver import engine
     from rvgrt_tpu_torch.ops import sdf_kernels as k3
 
@@ -902,47 +979,45 @@ def capture_k3_inputs(eng) -> list:
 
     k3.minconv_pass = hook
     try:
-        engine._sdf_phase_fn(eng.world.bits, eng.ecfg.world)
+        engine._sdf_phase_fn(bits, cfg)
     finally:
         k3.minconv_pass = real
     return got
 
 
-def check_k3(eng, dev) -> dict:
-    """K3 at every shape it meets, bit for bit against its plain version:
-    the world build's four passes (``build_sdf``: u8 512^3, cap 64;
-    ``extend_sdf_far``: 128^3, cap 66 at the headline) on their own inputs,
-    and the 2048^3 world's coarse shape (1024^3, cap 64), made by tiling
-    the world's first-pass field 2x2x2.  ``ms``, ``event_ms``, ``plain_ms``
-    and ``bound_ms`` are the means of ``build_sdf``'s two passes."""
-    import torch
-
+def k3_build_passes(bits, cfg, dev, plain_reps: int = 5) -> list:
+    """K3 at each of the world build's four passes (``build_sdf``'s and
+    ``extend_sdf_far``'s, on their own inputs), bit for bit against its
+    plain version (``k3_pass``), with its event time and the plain
+    version's time (``plain_reps`` runs)."""
     from rvgrt_tpu_torch.ops import sdf_kernels as k3
     from rvgrt_tpu_torch.utils.timer import timed_ms
 
-    inputs = capture_k3_inputs(eng)
+    inputs = capture_k3_inputs(bits, cfg)
     assert len(inputs) == 4, [(tuple(d.shape), a, c) for d, a, c in inputs]
     names = ("build_sdf", "build_sdf", "extend_sdf_far", "extend_sdf_far")
     passes = []
     for name, (d, axis, cap) in zip(names, inputs):
         stats, _ = k3_pass(d, axis, cap, dev, k3.minconv_pass,
                            calls=5 if d.numel() > 2 ** 24 else 20)
-        if name == "build_sdf":
-            stats["event_ms"] = timed_ms(
-                lambda _: k3.minconv_pass(d, axis, cap), dev)
-            stats["plain_ms"] = timed_ms(
-                lambda _: k3.minconv_pass_plain(d, axis, cap), dev, reps=5,
-                warmup=1)
+        stats["event_ms"] = timed_ms(lambda _: k3.minconv_pass(d, axis, cap),
+                                     dev, reps=5 if d.numel() > 2 ** 28
+                                     else 7)
+        stats["plain_ms"] = timed_ms(
+            lambda _: k3.minconv_pass_plain(d, axis, cap), dev,
+            reps=plain_reps, warmup=1 if plain_reps > 1 else 0)
         passes.append(dict(path=name, **stats))
         log(f"K3 {name}: {passes[-1]}")
-    # the 2048^3 world's coarse grid: axis 1, then axis 0 on its output
-    d, _, cap = inputs[0]
-    d = d.repeat(2, 2, 2)
-    for axis in (1, 0):
-        stats, d = k3_pass(d, axis, cap, dev, k3.minconv_pass, calls=2)
-        passes.append(dict(path="2048^3 coarse grid (tiled)", **stats))
-        log(f"K3 2048^3 coarse grid: {passes[-1]}")
-    del d
+    return passes
+
+
+def check_k3(bits, cfg, dev) -> dict:
+    """K3's row: ``k3_build_passes`` on the headline world's build (u8
+    512^3, cap 64, and the far mip's 128^3, cap 66 at 1024^3); ``ms``,
+    ``event_ms``, ``plain_ms`` and ``bound_ms`` are the means of
+    ``build_sdf``'s two passes.  The big worlds' passes are added by
+    ``phase_big_world``."""
+    passes = k3_build_passes(bits, cfg, dev)
     main = passes[:2]
 
     def mean(key):
@@ -1116,6 +1191,232 @@ def phase_probe(dev, counts: dict) -> dict:
     return dict(checks=checks, limits=res["limits"], skipped=res["skipped"])
 
 
+#: the big worlds: name -> (bench.py's setting, WorldConfig kwargs, whether
+#: the phase also runs the reference's traced GI init)
+BIG_WORLDS = {"reference": ("BENCH_REF_WORLD=1", {}, True),
+              "2048": ("BENCH_CUBE=11", dict(shift_x=11, shift_y=11,
+                                             shift_z=11), False)}
+#: the GI window of both big worlds: 2^27 cells / gi_sweep_frames (512)
+BIG_GI_WINDOW = 262144
+#: device memory a big world's build must stay under (the card's 80 GB)
+BIG_PEAK_GB = 80.0
+
+
+def timed_k1_calls(fn, dev) -> tuple:
+    """``fn()`` with a ``Timer`` (CUDA events on a GPU, host included)
+    around each call of K1's wrapper: (its result, each call's ms)."""
+    from rvgrt_tpu_torch.ops import superstep_kernel
+    from rvgrt_tpu_torch.utils.timer import Timer
+
+    real = superstep_kernel.trace_supersteps
+    ms = []
+
+    def hook(*a, **kw):
+        with Timer("", verbose=False, device=dev) as t:
+            out = real(*a, **kw)
+        ms.append(t.elapsed_ms)
+        return out
+
+    superstep_kernel.trace_supersteps = hook
+    try:
+        out = fn()
+    finally:
+        superstep_kernel.trace_supersteps = real
+    return out, ms
+
+
+def big_gi_init(world, wcfg, dev, counts: dict, key: str) -> dict:
+    """The reference's ``InitialGlobalIlluminate`` on a big world:
+    ``config_reference``'s GI init (traced, stride (1, 1), budget 0) over
+    all 2^27 cells, ``init_gi_chunked``'s eight 2^24-cell slices, one K1
+    launch each; a main-path run (``counts[key]``), timed whole and per
+    trace, and the median of 3 more runs (``warm_s``).  Then, uncounted,
+    one slice's trace (the middle one) against the plain loop
+    (``check_k1``: superstep by superstep and in one launch, bit for bit,
+    with its graph time and count-once bound)."""
+    import torch
+
+    from rvgrt_tpu_torch.config import config_reference
+    from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.utils.timer import Timer, timed_ms
+
+    ecfg = dataclasses.replace(config_reference(), world=wcfg)
+    assert ecfg.gi_init_mode == "traced" and ecfg.gi_straggler_budget == 0
+    assert tuple(ecfg.gi_init_stride) == (1, 1)
+    w = world
+    cells = wcfg.gi_num_cells
+    slice_cells = min(1 << 24, cells)  # init_gi_chunked's default chunk
+
+    def init():
+        return gi_update.init_gi_strided(w.bits, w.sdf, ecfg, sky_y=w.sky_y,
+                                         table=w.trace_table, stride=(1, 1))
+
+    reset_counts()
+    with Timer("", verbose=False, device=dev) as t:
+        words, trace_ms = timed_k1_calls(init, dev)
+    c = counts[key] = read_counts()
+    st = wavefront.read_stats()
+    traces = -(-cells // slice_cells)
+    assert c["K1"] == st["traces"] == len(trace_ms) == traces, (c, st)
+    lit = int(((words & 0xFFFFFF) != 0).sum())
+    assert 0 < lit < words.numel(), lit
+    out = dict(cells=cells, lanes_per_trace=slice_cells, s=t.elapsed_ms / 1e3,
+               warm_s=timed_ms(lambda _: init(), dev, reps=3,
+                               warmup=0) / 1e3,
+               trace_ms=trace_ms, launches=c, traces=st["traces"],
+               supersteps=st["supersteps"], lit_share=lit / words.numel())
+    del words
+    log(f"traced GI init: {out}")
+
+    off = (traces // 2) * slice_cells
+    calls = capture_k1(lambda: gi_update.init_gi(
+        w.bits, w.sdf, ecfg, sky_y=w.sky_y, table=w.trace_table, offset=off,
+        count=slice_cells))
+    assert len(calls) == 1 and calls[0][1]["flags"].numel() == slice_cells
+    out["k1_slice"] = dict(check_k1(
+        wcfg, w.trace_table, w.sky_y, *calls[0], dev, plain_reps=1,
+        what=f"the traced GI init's slice at cell {off}"), offset=off)
+    del calls
+    torch.cuda.empty_cache()
+    log(f"K1 on GI init slice at {off}: {out['k1_slice']}")
+    return out
+
+
+def phase_big_world(dev, name: str, frames: int, counts: dict,
+                    wcfg=None) -> dict:
+    """A big world of ``BIG_WORLDS`` (``wcfg`` overrides its WorldConfig, to
+    rehearse at a small size) at bench.py's operating point, as bench.py
+    builds it with ``BENCH_REF_WORLD=1`` or ``BENCH_CUBE=11`` (heightfield
+    GI init, stride (2, 2)):
+
+    1. the world build (main path, ``counts[name + "_build"]``): wall time,
+       phase times and each phase's peak device memory, under
+       ``BIG_PEAK_GB``;
+    2. K3 bit for bit against its plain version at the build's four passes,
+       with its graph time, bound and the plain version's time;
+    3. for the reference world, the traced GI init (``big_gi_init``);
+    4. bench.py's frames (main path, ``counts[name + "_frames"]``): 2
+       warm-up and ``frames`` timed frames of ``driver/frame_loop.py``, the
+       tier mix, K1 launches == traces, one K2 launch a frame, the GI window
+       of ``BIG_GI_WINDOW`` cells with its respite;
+    5. K1 bit for bit on the last frame's checkerboard primary trace (with
+       its graph time and count-once bound) and on a GI window's respite
+       phases 1 and 2;
+    6. the image's shape, finiteness and spread, and a non-zero hit share.
+
+    Returns the report; ``report["k1"]`` and ``report["k3_passes"]`` feed
+    the kernel line."""
+    import torch
+
+    from rvgrt_tpu_torch.config import WorldConfig
+    from rvgrt_tpu_torch.driver import engine
+    from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.render import pipeline
+    from rvgrt_tpu_torch.trace import wavefront
+
+    bench, kw, traced = BIG_WORLDS[name]
+    wcfg = wcfg or WorldConfig(**kw)
+    ecfg = headline_config(wcfg, WIDTH, HEIGHT)
+    report = {"world": f"{wcfg.size_x}x{wcfg.size_y}x{wcfg.size_z}",
+              "bench": bench, "phase_wall_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        report["phase_wall_s"][what] = now - clock[0]
+        clock[0] = now
+
+    # 1. the build
+    torch.cuda.empty_cache()
+    phase_s, phase_gb = {}, {}
+    reset_counts()
+    t0 = time.perf_counter()
+    world = engine.build_world(ecfg, verbose=False, device=dev,
+                               phase_times=phase_s, phase_peak_gb=phase_gb)
+    torch.cuda.synchronize()
+    c = counts[f"{name}_build"] = read_counts()
+    peak = max(phase_gb.values()) if phase_gb else 0.0
+    report["build"] = dict(wall_s=time.perf_counter() - t0, phase_s=phase_s,
+                           phase_peak_gb=phase_gb, peak_mem_gb=peak,
+                           launches=c, words=wcfg.num_words,
+                           coarse_cells=wcfg.sdf_num_cells,
+                           table_words=int(world.trace_table.numel()),
+                           gi_cells=wcfg.gi_num_cells,
+                           resident_gb=torch.cuda.memory_allocated() / 1e9)
+    log(f"{name} world build: {report['build']}")
+    assert c["K3"] == 4 and c["K1"] == 0, c
+    assert peak < BIG_PEAK_GB, f"the build's peak {peak} GB"
+    lap("build")
+
+    # 2. K3 at the build's four passes
+    report["k3_passes"] = k3_build_passes(world.bits, wcfg, dev, plain_reps=1)
+    torch.cuda.empty_cache()
+    lap("check_k3")
+
+    # 3. the reference's traced GI init
+    if traced:
+        report["gi_init"] = big_gi_init(world, wcfg, dev, counts,
+                                        f"{name}_gi_init")
+        lap("gi_init")
+
+    # 4. bench.py's frames
+    if wcfg.gi_num_cells == 1 << 27:
+        assert ecfg.gi_window == BIG_GI_WINDOW, ecfg.gi_window
+    pose = headline_pose(world.bits, wcfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = run_loop(world, ecfg, pose, frames, dev, scale=3)
+    torch.cuda.synchronize()
+    c = counts[f"{name}_frames"] = read_counts()
+    stats = wavefront.read_stats()
+    rep = loop_report(run, c, stats)
+    last = run["results"][-1]
+    check_image(last.image, (3 * HEIGHT, 3 * WIDTH, 3))
+    hit_share = float((last.out.depth != 1.0).float().mean())
+    rep.update(render=f"{WIDTH}x{HEIGHT} -> {3 * WIDTH}x{3 * HEIGHT}",
+               camera=pose, hit_share=hit_share, gi_window=ecfg.gi_window,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report["frames"] = rep
+    log(f"{name} frames: median {rep['ms_median']:.1f} ms, tiers "
+        f"{rep['per_tier']}, K1 launches {c['K1']} for {stats['traces']} "
+        f"traces ({stats['respites']} two-phase), overflow "
+        f"{rep['straggler_overflow']}, hit share {hit_share}")
+    assert 0.0 < hit_share, "every pixel is sky"
+    assert rep["tier_mix"] == expected_mix(frames), rep["tier_mix"]
+    check_launches(c, stats, len(run["ms"]), run["loop"].gi_windows)
+    lap("frames")
+
+    # 5. K1 on this world's traces
+    cfg, w = wcfg, world
+    r = ecfg.render
+    cam = run["cams"][-1][1]
+    del run, last
+    checker = k1_primary(lambda: pipeline.render_frame(
+        w.bits, w.sdf, w.gi, w.atlas, cam, ecfg, include_gi=False,
+        sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True,
+        checker_parity=1), r.height * (r.width // 2))
+    k1 = check_k1(cfg, w.trace_table, w.sky_y, *checker, dev, plain_reps=1,
+                  what=f"the {name} world's checkerboard primary trace")
+    del checker
+    calls = capture_k1(lambda: gi_update.update_gi(
+        w.gi, w.bits, w.sdf, w.atlas, ecfg, 0, 0, sky_y=w.sky_y,
+        table=w.trace_table))
+    assert len(calls) == 4, len(calls)
+    assert calls[2][0].max_supersteps == GI_BUDGET, calls[2][0]
+    k1["traces"] = {"gi_phase1": check_k1_trace(cfg, w.trace_table, w.sky_y,
+                                                *calls[2], dev),
+                    "gi_phase2": check_k1_trace(cfg, w.trace_table, w.sky_y,
+                                                *calls[3], dev)}
+    del calls
+    if traced:
+        k1["traces"]["gi_init_slice"] = report["gi_init"]["k1_slice"]
+    report["k1"] = k1
+    log(f"{name} K1: {k1}")
+    lap("check_k1")
+    return report
+
+
 KERNELS = {
     "K1": dict(name="trace_supersteps",
                source="rvgrt_tpu_torch/csrc/superstep_kernel.cu",
@@ -1137,7 +1438,10 @@ KERNELS = {
 
 def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
         profile: int = 0, cli_config: str = "stage4",
-        cli_frames: int = 6) -> dict:
+        cli_frames: int = 6, big_worlds=tuple(BIG_WORLDS),
+        big_frames: int = 6) -> dict:
+    import gc
+
     import torch
 
     from rvgrt_tpu_torch.driver import engine
@@ -1178,7 +1482,7 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
         "launches": counts["build"]}
     log(f"world build {build_s:.2f} s: {phase_times}")
     assert counts["build"]["K3"] >= 2, counts["build"]
-    pose = headline_pose(eng)
+    pose = headline_pose(eng.world.bits, ecfg.world)
     lap("world_build")
 
     # ---- main path: the headline, bench.py's frames ----
@@ -1298,8 +1602,33 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     k2["cli"] = check_k2(cli_last["state"], cli_last["motion"], dev)
     del head, c4, cli_last
     lap("check_k2")
-    checks = {"K1": k1, "K2": k2, "K3": check_k3(eng, dev), **probe["checks"]}
+    checks = {"K1": k1, "K2": k2, "K3": check_k3(w.bits, cfg, dev),
+              **probe["checks"]}
     lap("check_k3")
+
+    # ---- optional: where a frame's time goes ----
+    if profile:
+        report["profile"] = profile_frames(eng, pose, dev, profile)
+        log(f"profile: {json.dumps(report['profile'], indent=1)}")
+        lap("profile")
+
+    # ---- main path: the big worlds, each alone on the card ----
+    del eng, w, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in big_worlds:
+        big = report[f"world_{name}"] = phase_big_world(dev, name,
+                                                        big_frames, counts)
+        checks["K3"]["passes"] += [dict(p, path=f"{name}: {p['path']}")
+                                   for p in big.pop("k3_passes")]
+        k1_big = big.pop("k1")
+        checks["K1"]["traces"][f"{name}_checker"] = k1_big
+        for trace, v in k1_big.pop("traces").items():
+            checks["K1"]["traces"][f"{name}_{trace}"] = v
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"world_{name}")
+
     launches = {k: sum(c[k] for c in counts.values()) for k in KERNELS}
     table = []
     for k, meta in KERNELS.items():
@@ -1313,12 +1642,6 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
                    **{f: v for f, v in c.items() if f not in row})
         table.append(row)
     report["kernels"] = table
-
-    # ---- optional: where a frame's time goes ----
-    if profile:
-        report["profile"] = profile_frames(eng, pose, dev, profile)
-        log(f"profile: {json.dumps(report['profile'], indent=1)}")
-        lap("profile")
     return report
 
 
@@ -1336,9 +1659,19 @@ def main(argv=None) -> int:
                     help="after the checks, profile N more headline frames "
                          "with torch.profiler (device busy time, idle "
                          "share, top kernels)")
+    ap.add_argument("--worlds", default=",".join(BIG_WORLDS),
+                    help="the big worlds to build and render after the "
+                         "1024^3 phases, comma-separated, of "
+                         f"{', '.join(BIG_WORLDS)} (default: all; '' none)")
+    ap.add_argument("--big-frames", type=int, default=6,
+                    help="timed frames on each big world, after 2 warm-ups")
     ap.add_argument("--out", default="",
                     help="also write the whole report as JSON here")
     args = ap.parse_args(argv)
+    worlds = [n for n in args.worlds.split(",") if n]
+    for n in worlds:
+        if n not in BIG_WORLDS:
+            ap.error(f"--worlds: unknown world {n!r}")
 
     if not (ROOT / "rvgrt_tpu_torch" / "__init__.py").exists():
         log("chip_smoke.py: run it from a checkout of the repository "
@@ -1362,7 +1695,8 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     report = run(torch.device("cuda"), args.cube, args.frames,
-                 args.c4_frames, args.full_frames, profile=args.profile)
+                 args.c4_frames, args.full_frames, profile=args.profile,
+                 big_worlds=worlds, big_frames=args.big_frames)
     report["card"] = card
     report["wall_s"] = time.perf_counter() - t0
     if args.out:
@@ -1371,6 +1705,8 @@ def main(argv=None) -> int:
     print(json.dumps({k: report[k] for k in (
         "build", "headline", "config4", "full_rate", "gi_init", "cli",
         "respite_cost", "probe", "phase_wall_s", "wall_s")}), flush=True)
+    for n in worlds:
+        print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

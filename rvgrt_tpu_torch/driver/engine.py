@@ -91,21 +91,30 @@ def _sdf_phase_fn(b, cfg):
 
 def build_world(ecfg: EngineConfig, verbose: bool = True,
                 init_gi: bool = True, phase_times: dict | None = None,
-                device=None) -> World:
+                device=None, phase_peak_gb: dict | None = None) -> World:
     """Deterministic world build (State.cpp:24-56 lifecycle) with phase
     timers.  ``phase_times``: optional dict filled with {phase: seconds},
-    timed with CUDA events on a GPU."""
+    timed with CUDA events on a GPU.  ``phase_peak_gb``: optional dict
+    filled, on a GPU, with {phase: the device memory's peak in the phase,
+    GB}; it resets the device's peak statistic at each phase.  Nothing but
+    the World outlives a phase: the coarse occupancy and each SDF pass are
+    freed as the next step returns."""
     dev = resolve_device(device)
     cfg = ecfg.world
     if ecfg.render.gi_fused_cone:
         raise NotImplementedError("gi_fused_cone is not ported")
+    peaks = phase_peak_gb is not None and dev.type == "cuda"
 
     @contextlib.contextmanager
     def phase(name):
+        if peaks:
+            torch.cuda.reset_peak_memory_stats(dev)
         with Timer(name, verbose, device=dev) as t:
             yield
         if phase_times is not None:
             phase_times[name] = t.elapsed_ms / 1e3
+        if peaks:
+            phase_peak_gb[name] = torch.cuda.max_memory_allocated(dev) / 1e9
 
     with phase("building fine voxel grid"):
         bits = voxel_grid.generate(cfg, ecfg.terrain, device=dev)

@@ -137,12 +137,20 @@ def make_trace_table(bits: torch.Tensor, sdf: torch.Tensor,
 
     Built once per world.  QUARTERED pack: byte k of SDF word w = cell
     ``w + k * (num_cells/4)``, the JAX package's layout, so the two tables
-    compare word for word."""
+    compare word for word.  The SDF words are ORed in one quarter at a
+    time, so no int32 copy of the whole SDF (4 GiB at 2^30 cells) is
+    made."""
     from rvgrt_tpu_torch.world import voxel_grid
 
-    q = sdf.reshape(4, cfg.sdf_num_cells // 4).to(_I32)
-    packed = q[0] | (q[1] << 8) | (q[2] << 16) | u32.shl(q[3], 24)
-    return torch.cat([voxel_grid.to_brick_words(bits, cfg), packed])
+    nw, quarter = cfg.num_words, cfg.sdf_num_cells // 4
+    table = torch.empty(nw + quarter, dtype=_I32, device=bits.device)
+    table[:nw] = voxel_grid.to_brick_words(bits, cfg)
+    packed = table[nw:]
+    q = sdf.reshape(4, quarter)
+    packed.copy_(q[0])
+    for k in (1, 2, 3):
+        packed |= u32.shl(q[k].to(_I32), 8 * k)
+    return table
 
 
 def _sdf_word_index(cfg: WorldConfig, bits_len: int, vx, vy, vz):

@@ -52,7 +52,9 @@ def generate(cfg: WorldConfig, tcfg: TerrainConfig = TerrainConfig(),
 
     Pure function of (cfg, tcfg): deterministic regeneration is the
     checkpoint format, as in the reference (State.cpp:44-54).  One torch
-    pass over all words, in chunks sized by memory."""
+    pass over all words, in chunks sized by memory.  The word index and its
+    decode stay int32 at every supported world: 2^33 voxels are 2^28 words
+    (256 chunks), and x0 < 2^12."""
     dev = resolve_device(device)
     cfg.validate()
     n = cfg.num_words
@@ -104,7 +106,8 @@ def is_solid(bits: torch.Tensor, cfg: WorldConfig, x, y, z):
 BRICK_X, BRICK_Y, BRICK_Z = 4, 2, 4
 
 
-def to_brick_words(bits: torch.Tensor, cfg: WorldConfig) -> torch.Tensor:
+def to_brick_words(bits: torch.Tensor, cfg: WorldConfig,
+                   chunks: int | None = None) -> torch.Tensor:
     """Repack canonical x-run occupancy words into 4x2x4 brick words.
 
     Brick word index = (x>>2) | (y>>1) << (sx-2) | (z>>2) << (sx-2+sy-1);
@@ -112,19 +115,33 @@ def to_brick_words(bits: torch.Tensor, cfg: WorldConfig) -> torch.Tensor:
     canonical packing.  Brick word ``i`` along x takes its 4-voxel quad
     ``i & 7`` from canonical word ``i >> 3`` (the dense formulation of
     ``rvgrt_tpu``'s ``to_brick_words_dense``, bit-equal to its
-    ``to_brick_words``)."""
+    ``to_brick_words``).  Runs in ``chunks`` z-slabs, by default the JAX
+    package's rule (temporaries of about 256 MB), cut down until each slab
+    is whole bricks."""
     xw = cfg.size_x // 32
     vol = bits.reshape(cfg.size_z, cfg.size_y, xw)
+    if chunks is None:
+        chunks = max(1, (vol.numel() * 4) >> 28)
+    while chunks > 1 and (cfg.size_z % chunks
+                          or (cfg.size_z // chunks) % BRICK_Z):
+        chunks -= 1
     nib_shift = 4 * (torch.arange(xw * 8, dtype=_I32, device=bits.device) & 7)
-    acc = None
-    for bz in range(BRICK_Z):
-        for by in range(BRICK_Y):
-            sub = vol[bz::BRICK_Z, by::BRICK_Y]              # (czb, yb, xw)
-            rep = torch.repeat_interleave(sub, 8, dim=-1)   # (czb, yb, xw*8)
-            quad = u32.lsr(rep, nib_shift) & 0xF
-            part = quad << (4 * by + 8 * bz)
-            acc = part if acc is None else acc | part
-    return acc.reshape(-1)
+    out = torch.empty(bits.numel(), dtype=_I32, device=bits.device)
+    step = cfg.size_z // chunks
+    for z0 in range(0, cfg.size_z, step):
+        v = vol[z0:z0 + step]
+        acc = None
+        for bz in range(BRICK_Z):
+            for by in range(BRICK_Y):
+                sub = v[bz::BRICK_Z, by::BRICK_Y]          # (czb, yb, xw)
+                rep = torch.repeat_interleave(sub, 8, -1)  # (.., xw*8)
+                quad = u32.lsr(rep, nib_shift) & 0xF
+                part = quad << (4 * by + 8 * bz)
+                acc = part if acc is None else acc | part
+        # z is the slowest axis of both layouts: a slab is a run of words
+        out[z0 * cfg.size_y * xw:(z0 + step) * cfg.size_y * xw] = \
+            acc.reshape(-1)
+    return out
 
 
 def sky_limit(bits: torch.Tensor, cfg: WorldConfig) -> torch.Tensor:
@@ -137,34 +154,62 @@ def sky_limit(bits: torch.Tensor, cfg: WorldConfig) -> torch.Tensor:
     return top.to(_F32)
 
 
-def column_height(bits: torch.Tensor, cfg: WorldConfig) -> torch.Tensor:
+def column_height(bits: torch.Tensor, cfg: WorldConfig,
+                  chunks: int | None = None) -> torch.Tensor:
     """(size_z, size_x) i32: 1 + the highest solid voxel's y per column
-    (0 = empty column) - the per-column refinement of ``sky_limit``."""
+    (0 = empty column) - the per-column refinement of ``sky_limit``.  Each
+    per-bit pass makes int32 temporaries the size of the words it covers,
+    so it runs in ``chunks`` z-slabs, by default the JAX package's rule
+    (about 128 MB each); unchunked where ``size_z`` does not divide."""
     words = bits.reshape(cfg.size_z, cfg.size_y, cfg.size_x // 32)
+    if chunks is None:
+        chunks = max(1, (words.numel() * 4) >> 27)
+    if cfg.size_z % chunks:
+        chunks = 1
     ylev = torch.arange(1, cfg.size_y + 1, dtype=_I32,
                         device=bits.device)[None, :, None]
     out = torch.empty(cfg.size_z, cfg.size_x, dtype=_I32, device=bits.device)
-    for b in range(32):
-        anyb = u32.lsr(words, b) & 1
-        out[:, b::32] = (anyb * ylev).amax(dim=1)
+    step = cfg.size_z // chunks
+    for z0 in range(0, cfg.size_z, step):
+        w = words[z0:z0 + step]
+        for b in range(32):
+            anyb = u32.lsr(w, b) & 1
+            out[z0:z0 + step, b::32] = (anyb * ylev).amax(dim=1)
     return out
 
 
 def coarse_occupancy(bits: torch.Tensor, cfg: WorldConfig,
-                     coarseness: int | None = None) -> torch.Tensor:
+                     coarseness: int | None = None,
+                     chunk_z: int | None = None) -> torch.Tensor:
     """(SZ, SY, SX) bool: coarse cell solid iff any fine voxel inside is
     (``isCoarseBlockSolid``, ``CoarseArray.cu:11-32``).  OR-reduces words
     over the coarse block in y/z, then folds 32-voxel words down to
-    per-coarse-cell booleans along x."""
+    per-coarse-cell booleans along x.  ``_fold_x``'s temporary is (32 / c)
+    int32 a coarse row entry, so it runs in z-slabs of ``chunk_z`` fine
+    planes, by default the JAX package's rule: a power of two times c that
+    bounds the temporary, padded to a TPU's 128 lanes, to about 256 MB."""
     c = cfg.sdf_coarseness if coarseness is None else coarseness
     sx, sy, sz = cfg.size_x, cfg.size_y, cfg.size_z
     words = bits.reshape(sz, sy, sx // 32)
-    acc = None
-    for dz in range(c):
-        for dy in range(c):
-            part = words[dz::c, dy::c, :]
-            acc = part if acc is None else acc | part
-    return _fold_x(acc, sx, c)
+    if chunk_z is None:
+        padded_plane = (sy // c) * (sx // 32) * 128 * 4
+        chunk_out = max(1, (256 << 20) // max(padded_plane, 1))
+        chunk_z = c
+        while chunk_z * 2 <= chunk_out * c and sz % (chunk_z * 2) == 0 \
+                and chunk_z * 2 < sz:
+            chunk_z *= 2
+    assert chunk_z % c == 0 and sz % chunk_z == 0, (chunk_z, c, sz)
+    out = torch.empty(sz // c, sy // c, sx // c, dtype=torch.bool,
+                      device=bits.device)
+    for z0 in range(0, sz, chunk_z):
+        wc = words[z0:z0 + chunk_z]
+        acc = None
+        for dz in range(c):
+            for dy in range(c):
+                part = wc[dz::c, dy::c, :]
+                acc = part if acc is None else acc | part
+        out[z0 // c:(z0 + chunk_z) // c] = _fold_x(acc, sx, c)
+    return out
 
 
 def _fold_x(w: torch.Tensor, sx: int, c: int) -> torch.Tensor:

@@ -5,9 +5,11 @@ sun-shadow ray per GI cell, ``init_gi_chunked`` -> ``init_gi``) builds the
 same world and GI words bit for bit; ``init_gi_strided`` at stride (2, 2)
 (a ray per 2 x 2 block of cells, replicated), and at gi_coarseness 2 with
 ``gi_straggler_budget=12`` (32 768 cells: the two-phase respite engages),
-gives the same words.  Port only: ``init_gi_chunked`` in slices of 1024
-and of 1536 cells (a tail window anchored at ``cells - pad``) equals the
-whole init, and each slice is one trace.  The JAX side runs in one child
+gives the same words.  ``init_gi_chunked`` in slices of 1024, 1536 and
+1280 cells (full slices and, at 1536 and 1280, a tail window anchored at
+``cells - pad``) equals the whole init, and each slice is one trace; at
+1280 (three full slices and a tail) it also equals the JAX package's
+``init_gi_chunked(chunk=1280)``.  The JAX side runs in one child
 process without FMA contraction (tests/torch_jaxref.py), started first so
 that it overlaps the port's own work.
 """
@@ -36,7 +38,9 @@ CASES = {
                          (1, 1), 2, 1),
 }
 #: chunk -> traces of init_gi_chunked over the 4096 cells of 64^3
-CHUNKS = {1024: 4, 1536: 3}
+CHUNKS = {1024: 4, 1536: 3, 1280: 4}
+#: the chunks the JAX package's init_gi_chunked also runs
+JAX_CHUNKS = (1280,)
 
 
 def _traced(fn):
@@ -49,7 +53,8 @@ def _traced(fn):
 def inits():
     child = ref.start([("ref_gi_init", dict(
         spec=SPEC, cases=[(over, stride)
-                          for over, stride, _, _ in CASES.values()]))])
+                          for over, stride, _, _ in CASES.values()],
+        chunks=JAX_CHUNKS))])
     ecfg = ref.make_ecfg(tcfg, SPEC)
     world, build_stats = _traced(lambda: engine.build_world(
         ecfg, verbose=False, device="cpu"))
@@ -96,6 +101,9 @@ def test_init_gi_chunked_equals_whole_init(inits, chunk):
     np.testing.assert_array_equal(u32.to_numpy(words),
                                   inits["want"]["world"]["gi"])
     assert stats["traces"] == CHUNKS[chunk]
+    if chunk in JAX_CHUNKS:
+        np.testing.assert_array_equal(u32.to_numpy(words),
+                                      inits["want"]["chunked"][chunk])
 
 
 def test_build_world_still_refuses_the_fused_cone():

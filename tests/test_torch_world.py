@@ -2,7 +2,8 @@
 
 Config presets, noise/terrain, voxel words, the SDF (kernel K3's plain
 version), the trace table, the sky limit and the heightfield GI init must
-be bit-exact.  The JAX side runs in a child process without FMA
+be bit-exact; so must the build's chunked functions, each forced to
+several chunks, on a non-cube world and on one of the reference's shape.  The JAX side runs in a child process without FMA
 contraction (tests/torch_jaxref.py).  Also: the port imports neither jax
 nor rvgrt_tpu, and its entry points refuse to run without a GPU unless
 given device="cpu".
@@ -26,12 +27,52 @@ from rvgrt_tpu_torch.gi import update as gi_update
 from rvgrt_tpu_torch.ops import sdf_kernels
 from rvgrt_tpu_torch.trace import wavefront
 from rvgrt_tpu_torch.upscale import temporal
+from rvgrt_tpu_torch.world import sdf as sdf_mod
 from rvgrt_tpu_torch.world import voxel_grid
 from tests import torch_jaxref as ref
 
 WORLDS = {"32^3": {"cube": 5}, "64^3": {"cube": 6},
           "64x32x128": {"world": dict(shift_x=6, shift_y=5, shift_z=7)}}
 HEAD = ref.SLICE_SPEC
+#: a world of the reference's shape (x = z = 8 y, as 4096x512x4096) with
+#: sky headroom above its terrain, its words made from a seed in numpy
+RATIO_WORLD = {"world": dict(shift_x=8, shift_y=5, shift_z=8)}
+#: the worlds the chunked build functions run on: (spec, words maker)
+CHUNK_WORLDS = {"64x32x128": (WORLDS["64x32x128"], None),
+                "256x32x256": (RATIO_WORLD, "ratio")}
+#: each chunked part, forced to more than one chunk at these sizes
+CHUNKED_PARTS = {
+    "brick": lambda b, cfg: voxel_grid.to_brick_words(b, cfg, chunks=4),
+    "height": lambda b, cfg: voxel_grid.column_height(b, cfg, chunks=4),
+    "coarse": lambda b, cfg: voxel_grid.coarse_occupancy(b, cfg,
+                                                         chunk_z=16),
+    "sdf": lambda b, cfg: engine._sdf_phase_fn(b, cfg),
+    "table": lambda b, cfg: wavefront.make_trace_table(
+        b, engine._sdf_phase_fn(b, cfg), cfg),
+}
+AXIS_SOLID_SHAPE = (16, 24, 40)  # a non-cube coarse grid, z y x
+
+
+def _ratio_words() -> np.ndarray:
+    """256x32x256 occupancy words from a seed: a smooth heightfield of 2 to
+    22 voxels (10 voxels of sky above it), 3 % of its voxels carved out as
+    caves, x fastest as ``pack_bits_x``."""
+    rng = np.random.default_rng(23)
+    x = np.arange(256, dtype=np.float64)
+    ph = rng.uniform(0, 2 * np.pi, 4)
+    h = (12 + 5 * np.sin(x / 17 + ph[0])[None, :]
+         + 4 * np.sin(x / 29 + ph[1])[:, None]
+         + 3 * np.sin((x[:, None] + x[None, :]) / 11 + ph[2]))
+    h = np.clip(np.rint(h), 2, 22)                       # (z, x)
+    solid = np.arange(32)[None, :, None] < h[:, None, :]  # (z, y, x)
+    solid &= rng.random(solid.shape) >= 0.03
+    weights = (np.uint64(1) << np.arange(32, dtype=np.uint64))
+    words = (solid.reshape(256, 32, 8, 32) * weights).sum(-1)
+    return words.astype(np.uint32).reshape(-1)
+
+
+def _axis_solid() -> np.ndarray:
+    return np.random.default_rng(31).random(AXIS_SOLID_SHAPE) < 0.05
 
 
 def _noise_inputs():
@@ -50,9 +91,17 @@ def jax_ref():
     jobs = [("ref_noise", _noise_inputs())]
     jobs += [("ref_generate", {"spec": s}) for s in WORLDS.values()]
     jobs += [("ref_world", {"spec": HEAD})]
+    jobs += [("ref_world_parts", {"spec": spec, "bits": (
+        _ratio_words() if maker else None)})
+        for spec, maker in CHUNK_WORLDS.values()]
+    jobs += [("ref_axis_distance", {"solid": _axis_solid(), "cap": 64,
+                                    "chunks": 4})]
     res = ref.run(jobs)
-    return dict(noise=res[0], words=dict(zip(WORLDS, res[1:1 + len(WORLDS)])),
-                world=res[-1])
+    n = len(WORLDS)
+    return dict(noise=res[0], words=dict(zip(WORLDS, res[1:1 + n])),
+                world=res[1 + n],
+                parts=dict(zip(CHUNK_WORLDS, res[2 + n:-1])),
+                axis_distance=res[-1])
 
 
 @pytest.mark.parametrize("preset", ["config_stage1", "config_stage2",
@@ -145,6 +194,32 @@ def test_unpack_inverts_pack():
     solid = torch.from_numpy(rng.random((3, 5, 64)) < 0.4)
     words = voxel_grid.pack_bits_x(solid)
     assert torch.equal(voxel_grid.unpack_bits_x(words), solid)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_axis_distance_chunked_bit_exact(jax_ref, axis):
+    """``_axis_distance_1d(chunks=4)`` on a non-cube grid equals its JAX
+    counterpart with the same chunks, and its unchunked self."""
+    solid = torch.from_numpy(_axis_solid())
+    got = sdf_mod._axis_distance_1d(solid, axis, 64, chunks=4)
+    np.testing.assert_array_equal(got.numpy(), jax_ref["axis_distance"][axis])
+    assert torch.equal(got, sdf_mod._axis_distance_1d(solid, axis, 64,
+                                                      chunks=1))
+
+
+@pytest.mark.parametrize("part", list(CHUNKED_PARTS))
+@pytest.mark.parametrize("world", list(CHUNK_WORLDS))
+def test_chunked_build_parts_bit_exact(jax_ref, world, part):
+    """Each chunked function of the build, forced to more than one chunk,
+    equals the JAX function on the same words, at a non-cube world and at
+    one of the reference's shape; the SDF phase and the trace table run
+    with the default rules."""
+    want = jax_ref["parts"][world]
+    cfg = ref.make_ecfg(tcfg, CHUNK_WORLDS[world][0]).world
+    bits = u32.from_numpy(want["bits"])
+    got = CHUNKED_PARTS[part](bits, cfg)
+    got = u32.to_numpy(got) if part in ("brick", "table") else got.numpy()
+    np.testing.assert_array_equal(got, want[part])
 
 
 def test_sdf_bit_exact_vs_sdf_phase_fn(jax_ref):

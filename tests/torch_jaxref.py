@@ -215,11 +215,50 @@ def ref_world(spec):
     return out
 
 
-def ref_gi_init(spec, cases):
+def ref_axis_distance(solid, cap, chunks):
+    """``sdf._axis_distance_1d`` of ``solid`` along each axis, in
+    ``chunks`` leading-axis chunks."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.world import sdf
+
+    return [np.asarray(sdf._axis_distance_1d(jnp.asarray(solid), axis, cap,
+                                             chunks=chunks))
+            for axis in range(solid.ndim)]
+
+
+def ref_world_parts(spec, bits=None):
+    """The world build's parts on the occupancy words ``bits`` (generated
+    from ``spec`` when None): the brick words, column heights, coarse
+    occupancy, the SDF phase and the trace table, each function jitted
+    whole (one compile each; integer results, as eager)."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.driver import engine
+    from rvgrt_tpu.trace import wavefront
+    from rvgrt_tpu.world import voxel_grid
+
+    cfg = make_ecfg(_cfg(), spec).world
+    b = (voxel_grid.generate(cfg) if bits is None
+         else jnp.asarray(np.asarray(bits, np.uint32)))
+    sdf = jax.jit(lambda b: engine._sdf_phase_fn(b, cfg))(b)
+    return _np(dict(
+        bits=b,
+        brick=jax.jit(lambda b: voxel_grid.to_brick_words(b, cfg))(b),
+        height=jax.jit(lambda b: voxel_grid.column_height(b, cfg))(b),
+        coarse=jax.jit(lambda b: voxel_grid.coarse_occupancy(b, cfg))(b),
+        sdf=sdf,
+        table=jax.jit(lambda b, s: wavefront.make_trace_table(b, s, cfg))(
+            b, sdf)))
+
+
+def ref_gi_init(spec, cases, chunks=()):
     """``ref_world`` of ``spec`` (with its GI init), and on that world's
     arrays the words of ``init_gi_strided`` for each ``(overrides,
     stride)`` of ``cases``, the overrides merged into ``spec`` with
-    ``merge_spec``."""
+    ``merge_spec``, and of ``init_gi_chunked`` for each chunk of
+    ``chunks``."""
     import jax.numpy as jnp
 
     from rvgrt_tpu.gi import update
@@ -233,7 +272,11 @@ def ref_gi_init(spec, cases):
         words.append(np.asarray(update.init_gi_strided(
             w["bits"], w["sdf"], ecfg, sky_y=w["sky_y"],
             table=w["trace_table"], stride=tuple(stride))))
-    return dict(world=world, words=words)
+    ecfg = make_ecfg(_cfg(), spec)
+    chunked = {c: np.asarray(update.init_gi_chunked(
+        w["bits"], w["sdf"], ecfg, sky_y=w["sky_y"], table=w["trace_table"],
+        chunk=c)) for c in chunks}
+    return dict(world=world, words=words, chunked=chunked)
 
 
 def ref_trace(spec, world, rays, shape):

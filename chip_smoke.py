@@ -49,7 +49,13 @@ is printed.
    exact hit classification on every base and reconstructed frame;
 10. gather probe (main path): ``tools/probe_r7.py``, P1 and P2 from tables
    of 2-100 MiB and the library gather beside them, each kernel bit for bit
-   against its plain version; the card's shared-memory and L2 limits;
+   against its plain version, also with each L2 cache-policy hint taken
+   out and, at the 2 MiB rung, as the on-chip variant (the table in a
+   16-CTA cluster's shared memory); the card's shared-memory and L2
+   limits; then the edge cases (``probe_r7.edge_checks``, not counted):
+   lanes 1-7 past a multiple of 8, an index view 4 B off, indices below 0
+   and at n and beyond, P2 with 7 columns, and tables one word under, at
+   and over the on-chip variant's threshold, each bit for bit;
 11. kernels: K1, K2 and K3 against their plain versions on the inputs the
    main path gives them, with their times, the least time the card could
    take (``bound_ms``, from this run's data) and the main path's launch
@@ -1168,10 +1174,12 @@ def phase_cli(dev, config: str, frames: int, counts: dict) -> tuple:
 def phase_probe(dev, counts: dict) -> dict:
     """The gather probe (``tools/probe_r7.py``): P1 and P2 at each table
     size of its ladder, the library gather and the small-table reference
-    ladder, each kernel bit for bit against its plain version.  Only the
-    gathers themselves are counted (``counts["probe"]``).  Returns the
-    checks of P1 and P2 (the kernel line's numbers are those of the 100 MiB
-    table, the ladder's largest; every size is under ``sizes``) and the
+    ladder, each kernel bit for bit against its plain version (with each
+    hint variant and, where the table fits, the on-chip variant), then the
+    edge cases.  Only the gathers themselves are counted
+    (``counts["probe"]``).  Returns the checks of P1 and P2 (the kernel
+    line's numbers are those of the 100 MiB table, the ladder's largest;
+    every size is under ``sizes``, the edge cases under ``edges``) and the
     card's limits."""
     from rvgrt_tpu_torch.tools import probe_r7
 
@@ -1180,6 +1188,9 @@ def phase_probe(dev, counts: dict) -> dict:
     n_ladder, n_ref = len(probe_r7.SIZES_MB), len(probe_r7.REF_MB)
     assert res["launches"]["P1"] == n_ladder + n_ref and \
         res["launches"]["P2"] == n_ladder, res["launches"]
+    edges = res["edges"]
+    assert all(e["bit_exact"] for e in edges) and \
+        {e["kernel"] for e in edges} == {"P1", "P2"}, edges
     checks = {}
     for k in ("P1", "P2"):
         rows = [r for r in res["rows"] if r["kernel"] == k]
@@ -1187,7 +1198,8 @@ def phase_probe(dev, counts: dict) -> dict:
                     and r["table_mib"] == max(probe_r7.SIZES_MB))
         checks[k] = dict(main, shape=f"{main['table']} table "
                          f"({main['table_mib']} MiB), {main['idx']} indices",
-                         sizes=rows)
+                         sizes=rows,
+                         edges=[e for e in edges if e["kernel"] == k])
     return dict(checks=checks, limits=res["limits"], skipped=res["skipped"])
 
 

@@ -126,11 +126,12 @@ def _declare(lib) -> None:
                         + [vp, vp], ci),
         "rvgrt_warp_bilinear": ([vp] * 4 + [ci, ci, cll, vp], ci),
         "rvgrt_minconv_mid": ([vp, vp, ci, ci, cll, ci, vp], ci),
-        "rvgrt_take_clip": ([vp, cll, vp, vp, cll, vp], ci),
-        "rvgrt_take_clip_l2": ([vp, cll, vp, vp, cll, cll, ctypes.c_float,
-                                vp], ci),
+        "rvgrt_gather": ([ci, vp, cll, ci, vp, vp, cll, cll, ci, ci, cll,
+                          ctypes.c_float, vp], ci),
+        "rvgrt_gather_cluster": ([ci, vp, cll, ci, vp, vp, cll, cll, ci, ci,
+                                  vp], ci),
+        "rvgrt_gather_limits": ([ci, vp], ci),
         "rvgrt_set_persisting_l2": ([cll], ci),
-        "rvgrt_take_along_cols": ([vp, ci, ci, vp, vp, cll, vp], ci),
         "rvgrt_device_limits": ([ci, vp], ci),
     }
     for name, (args, res) in sigs.items():

@@ -130,9 +130,10 @@ def variant_source(src: Path, edits: list, out: Path) -> Path:
     return out
 
 
-def build(builds: dict, out_dir: Path) -> dict:
-    """Compile every (source, edits) at once; returns name -> (library
-    path, ptxas report)."""
+def build(builds: dict, out_dir: Path, prefix: str = "k3") -> dict:
+    """Compile every (source, edits) at once into ``out_dir``, each file
+    named ``{prefix}_{name}``; returns name -> (library path, ptxas
+    report)."""
     from rvgrt_tpu_torch.ops import _lib
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -140,8 +141,8 @@ def build(builds: dict, out_dir: Path) -> dict:
     procs = {}
     for name, (src, edits) in builds.items():
         if edits:
-            src = variant_source(src, edits, out_dir / f"k3_{name}.cu")
-        so = out_dir / f"k3_{name}.so"
+            src = variant_source(src, edits, out_dir / f"{prefix}_{name}.cu")
+        so = out_dir / f"{prefix}_{name}.so"
         cmd = [nvcc, *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-shared", str(src),
                "-o", str(so)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,

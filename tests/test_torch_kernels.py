@@ -438,45 +438,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 #: the cases of the gather kernels: (table words, index shape, spread of
-#: the indices beyond [0, n)); 37 x 128 lanes is no multiple of the
-#: kernels' 256-thread block, 8192 x 128 is the probe's shape
+#: the indices beyond [0, n), options); 37 x 128 lanes is no multiple of
+#: a block's 1024 lanes, 8192 x 128 is the probe's shape.  Options:
+#: ``offset`` indices in a view 4 B past an aligned address (the scalar
+#: path), ``cols`` P2's row width, ``threshold`` the table's words past the
+#: on-chip variant's largest (``None`` for n: the card sets it)
 GATHER_CASES = {
-    "tiny": (5, (3, 7), 4),
-    "ragged": (1000, (37, 128), 300),
-    "probe": (8 * (1 << 20) // 4, (8192, 128), 1000),
+    "tiny": (5, (3, 7), 4, {}),
+    "ragged": (1000, (37, 128), 300, {}),
+    "probe": (8 * (1 << 20) // 4, (8192, 128), 1000, {}),
+    **{f"lanes_mod8_{k}": (1 << 21, (8192 * 128 + k,), 1000, {})
+       for k in range(1, 8)},
+    "index_offset_4B": (1 << 21, (8192, 128), 1000, dict(offset=True)),
+    "cols_7": (16384 * 7, (149797, 7), 1000, dict(cols=7)),
+    **{f"threshold_{d:+d}_word": (None, (8192, 128), 1000,
+                                  dict(threshold=d)) for d in (-1, 0, 1)},
 }
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous view 4 B past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    out = buf[1:].view(t.shape)
+    assert out.data_ptr() % 16 == 4
+    return out
 
 
 @pytest.mark.parametrize("case", list(GATHER_CASES))
 def test_gather_kernels_match_plain(cuda, case):
     """P1 and P2 equal their plain versions bit for bit, one launch each,
-    indices outside the table included."""
-    n, shape, beyond = GATHER_CASES[case]
+    indices outside the table included; through the path the wrapper
+    plans, the L2 path with each hint variant, and the on-chip variant
+    where the table fits it (a ValueError where it does not)."""
+    n, shape, beyond, opt = GATHER_CASES[case]
+    if n is None:
+        smem = gather_kernels.gather_limits(cuda)[0]["smem_optin"]
+        n = gather_kernels.on_chip_words_max(smem) + opt["threshold"]
     rng = np.random.default_rng(sum(map(ord, case)))
     tbl = u32.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.uint64)
                          .astype(np.uint32), cuda)
     idx = torch.from_numpy(rng.integers(-beyond, n + beyond, shape)
                            .astype(np.int32)).to(cuda)
-    n0 = gather_kernels.take_clip_launches
-    got = gather_kernels.take_clip(tbl, idx)
-    assert gather_kernels.take_clip_launches == n0 + 1
-    assert torch.equal(got, gather_kernels.take_clip_plain(tbl, idx))
-    # the same kernel under an L2 access-policy window (the probe's
-    # measurement), half the table persisting
-    gather_kernels.set_persisting_l2(1 << 20)
-    try:
-        got = gather_kernels.take_clip_l2(tbl, idx, 4 * n, 0.5)
-    finally:
-        gather_kernels.set_persisting_l2(0)
-    assert torch.equal(got, gather_kernels.take_clip_plain(tbl, idx))
-    if n < 128:
+    if opt.get("offset"):
+        idx = _offset_view(idx)
+    smem = gather_kernels.gather_limits(cuda)[0]["smem_optin"]
+
+    def check(kernel, plain, args, words):
+        want = plain(*args)
+        name = kernel.__name__.replace("_cuda", "_launches")
+        n0 = getattr(gather_kernels, name)
+        got = kernel(*args)
+        assert getattr(gather_kernels, name) == n0 + 1
+        assert torch.equal(got, want)
+        for hints in (0, 1, 2, 3):
+            assert torch.equal(kernel(*args, hints=hints, on_chip=False),
+                               want)
+        if gather_kernels.on_chip_slice(words, smem) and \
+                args[0].data_ptr() % 16 == 0:
+            assert torch.equal(kernel(*args, on_chip=True), want)
+        else:
+            with pytest.raises(ValueError):
+                kernel(*args, on_chip=True)
+
+    if "cols" not in opt:
+        check(gather_kernels.take_clip_cuda, gather_kernels.take_clip_plain,
+              (tbl, idx), n)
+        # the L2 path under an L2 access-policy window (the probe's
+        # measurement), half the table persisting
+        gather_kernels.set_persisting_l2(1 << 20)
+        try:
+            got = gather_kernels.take_clip_l2(tbl, idx, 4 * n, 0.5)
+        finally:
+            gather_kernels.set_persisting_l2(0)
+        assert torch.equal(got, gather_kernels.take_clip_plain(tbl, idx))
+    cols = opt.get("cols", 128)
+    if n < cols or idx.ndim != 2 or idx.shape[1] != cols:
         return
-    t2, i2 = gather_kernels.tala_inputs(tbl, idx)
-    for ix in (i2, idx // 64):  # the probe's i2, and one out of range
-        n0 = gather_kernels.take_along_cols_launches
-        got = gather_kernels.take_along_cols(t2, ix)
-        assert gather_kernels.take_along_cols_launches == n0 + 1
-        assert torch.equal(got, gather_kernels.take_along_cols_plain(t2, ix))
+    t2, i2 = gather_kernels.tala_inputs(tbl, idx, cols)
+    rows = t2.shape[0]
+    wild = torch.remainder(idx, 4 * rows + 3) - (2 * rows + 1)
+    for ix in (i2, wild.to(torch.int32)):  # the probe's i2; wrap and fill
+        if opt.get("offset"):
+            ix = _offset_view(ix)
+        check(gather_kernels.take_along_cols_cuda,
+              gather_kernels.take_along_cols_plain, (t2, ix), t2.numel())
 
 
 def test_traced_gi_init_gpu_matches_cpu(cuda, worlds):

@@ -27,6 +27,22 @@ is printed.
    world, temporal reconstruction at scale 1, 2 warm-up and 6 timed frames;
 5. full rate (main path): the viewer's path, ``Engine.step`` +
    ``temporal_upscale``, 2 warm-up and 4 timed frames;
+5b. post modes (main paths): ``bench.py``'s other post stages on the same
+   world and pose (``POST_MODES``), 2 warm-up and 6 timed frames each at
+   1280x800: ``"net"``, the learned upscaler from ``checkpoints/
+   upscaler.pkl`` (up-l) to 3840x2400, and ``"residual"``, the accumulator
+   with the learned residual head from ``checkpoints/residual_head.pkl``,
+   both at full rate along the pan path as bench.py runs them; the
+   accumulator with ``BENCH_COMP_CADENCE=2`` on the interactive path; and
+   ``"none"``, native output.  Each checkpoint is asserted present and
+   loaded; per mode the frame median and p90, peak memory and launches (K2
+   only under the accumulator), and for the nets their device time by part
+   (history warp, conv stack, display-resolution tail) beside their convs'
+   FLOP bound at the dense bf16 peak.  Then the world checkpoint's round
+   trip (``save_world`` + ``load_world``, bit for bit, timed) of the 1024^3
+   world; and the CLI with
+   ``--config tiny --frames 4 --upscale checkpoints/upscaler_r2.pkl``
+   (3x PNGs, K1 launches == traces, no K2);
 6. traced GI init (main path): ``config_stage4``'s GI init on the same
    world (stage 4's): one sun-shadow ray per GI cell through K1, at stride
    (1, 1) all 2^24 cells in one trace and at (2, 2) 2^22, each timed; K1 on
@@ -44,9 +60,10 @@ is printed.
    every kernel is its plain PyTorch version, which the CPU test suite holds
    against the JAX package): the full-rate path for 3 frames and the frame
    loop for 6 (checkerboard and quarter frames, 16 384-cell GI windows that
-   engage the respite); and the frame loop for 4 on the non-cube 256x128x256
-   world (``NONCUBE_SHIFTS``); worlds and GI words bit-exact, >= 50 dB and
-   exact hit classification on every base and reconstructed frame;
+   engage the respite); the frame loop for 4 on the non-cube 256x128x256
+   world (``NONCUBE_SHIFTS``); and each post mode of phase 5b for 4;
+   worlds and GI words bit-exact, >= 50 dB and exact hit classification on
+   every base and output frame;
 10. gather probe (main path): ``tools/probe_r7.py``, P1 and P2 from tables
    of 2-100 MiB and the library gather beside them, each kernel bit for bit
    against its plain version, also with each L2 cache-policy hint taken
@@ -87,8 +104,8 @@ two-phase trace as a trace, so on every path K1 launches == traces.
 Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
 line sums each kernel's launches over the build, the three frame paths, the
-GI init, the CLI, the probe's gathers and the big worlds' builds, init and
-frames.
+GI init, the post modes, the CLIs, the probe's gathers and the big worlds'
+builds, init and frames.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
@@ -246,12 +263,14 @@ def headline_pose(bits, w) -> dict:
                 pitch=-math.pi - math.asin(float(-fwd[1])))
 
 
-def make_character(ecfg, pose: dict):
+def make_character(ecfg, pose: dict, upscaler: str = "temporal"):
     """A Character at ``pose`` for ``ecfg``'s render and display sizes,
-    with the 9-phase jitter of the temporal accumulator (bench.py's)."""
+    with the jitter table bench.py renders with under ``upscaler`` (the
+    9-phase one of the temporal accumulator by default)."""
     import numpy as np
 
-    from rvgrt_tpu_torch.scene.camera import Character, phase_jitter_sequence
+    from rvgrt_tpu_torch.driver import frame_loop
+    from rvgrt_tpu_torch.scene.camera import Character
 
     r = ecfg.render
     return Character(display_width=r.display_width,
@@ -259,7 +278,7 @@ def make_character(ecfg, pose: dict):
                      render_height=r.height,
                      position=np.asarray(pose["position"], np.float32),
                      yaw=pose["yaw"], pitch=pose["pitch"],
-                     jitter_sequence=phase_jitter_sequence(3))
+                     jitter_sequence=frame_loop.jitter_sequence(upscaler))
 
 
 def expected_mix(frames: int) -> dict:
@@ -272,19 +291,25 @@ def expected_mix(frames: int) -> dict:
 
 
 def run_loop(world, ecfg, pose: dict, frames: int, dev, scale: int,
-             time_s: float = 1.0) -> dict:
+             time_s: float = 1.0, upscaler: str = "temporal", net=None,
+             comp_cadence: int = 1) -> dict:
     """``frame_loop.WARMUP`` + ``frames`` frames of
-    ``driver/frame_loop.py`` along bench.py's interactive path from
-    ``pose``, each timed with CUDA events (host included) on a GPU.
-    Returns the loop, the rates, each frame's result and ms."""
+    ``driver/frame_loop.py`` in the post mode ``upscaler`` (with its
+    ``net``) and composite cadence, along bench.py's path for that mode
+    from ``pose`` (the interactive path under the temporal accumulator),
+    each timed with CUDA events (host included) on a GPU.  Returns the
+    loop, the rates, each frame's result and ms."""
     from rvgrt_tpu_torch.driver import frame_loop
     from rvgrt_tpu_torch.utils.timer import Timer
 
-    cams = frame_loop.path_cameras(make_character(ecfg, pose),
-                                   frame_loop.path_yaws(frames),
-                                   time_s=time_s, device=dev)
-    rates = frame_loop.rate_schedule([c for c, _ in cams], ecfg)
-    loop = frame_loop.FrameLoop(world, ecfg, scale=scale)
+    cams = frame_loop.path_cameras(
+        make_character(ecfg, pose, upscaler),
+        frame_loop.path_yaws(frames, frame_loop.camera_path(upscaler)),
+        time_s=time_s, device=dev)
+    rates = frame_loop.rate_schedule([c for c, _ in cams], ecfg,
+                                     adaptive=frame_loop.adaptive(upscaler))
+    loop = frame_loop.FrameLoop(world, ecfg, scale=scale, upscaler=upscaler,
+                                net=net, comp_cadence=comp_cadence)
     results, ms = [], []
     for i, (_, cam) in enumerate(cams):
         with Timer("frame", verbose=False, device=dev) as t:
@@ -512,7 +537,52 @@ def phase_reference(dev) -> dict:
                                          REF_POSE),
             "frame_loop_" + "x".join(map(str, NONCUBE_SHIFTS)):
                 reference_loop(dev, reference_loop_config(NONCUBE_SHIFTS),
-                               2)}
+                               2),
+            "post_modes": reference_post_modes(dev, 2)}
+
+
+def reference_post_modes(dev, frames: int) -> dict:
+    """Each of ``POST_MODES`` for ``WARMUP`` + ``frames`` frames of the
+    frame loop on the 64^3 world at 128x80 from ``REF_POSE``, on the GPU
+    and on the CPU: the same rates, GI words equal, the hit classification
+    equal and >= 50 dB on every base and output frame."""
+    import numpy as np
+
+    from rvgrt_tpu_torch.core import u32
+    from rvgrt_tpu_torch.driver import engine
+
+    ecfg = reference_loop_config()
+    worlds = {str(d): engine.build_world(ecfg, verbose=False, device=d)
+              for d in (dev, "cpu")}
+    wg, wc = (engine.world_to_numpy(worlds[k]) for k in (str(dev), "cpu"))
+    for k in wc:
+        np.testing.assert_array_equal(wg[k], wc[k], err_msg=k)
+    nets = {str(d): load_nets(d) for d in (dev, "cpu")}
+    out = {}
+    for name, mode, cadence, _ in POST_MODES:
+        rg, rc = (run_loop(worlds[str(d)], ecfg, REF_POSE, frames, d,
+                           scale=3, upscaler=mode, net=nets[str(d)].get(mode),
+                           comp_cadence=cadence) for d in (dev, "cpu"))
+        assert rg["rates"] == rc["rates"], (rg["rates"], rc["rates"])
+        np.testing.assert_array_equal(u32.to_numpy(rg["loop"].gi),
+                                      u32.to_numpy(rc["loop"].gi),
+                                      err_msg=f"{name}: GI words")
+        base_db, up_db, hits = [], [], []
+        for a, b in zip(rg["results"], rc["results"]):
+            assert bool((a.hit.cpu() == b.hit).all()), \
+                f"{name}: hit classification differs between GPU and CPU"
+            hits.append(float(b.hit.float().mean()))
+            base_db.append(psnr(a.out.color, b.out.color))
+            up_db.append(psnr(a.image, b.image))
+        assert min(base_db) >= 50.0 and min(up_db) >= 50.0, \
+            (name, base_db, up_db)
+        assert max(hits) > 0.0, f"{name}: every primary ray missed"
+        out[name] = {"rates": rg["rates"], "hit_share": hits,
+                     "base_color_psnr_db": base_db,
+                     "output_psnr_db": up_db,
+                     "hit_classification_equal": True,
+                     "gi_words_bit_exact": True}
+    return out
 
 
 def reference_loop(dev, ecfg, frames: int, pose=None) -> dict:
@@ -1118,6 +1188,262 @@ def phase_gi_init(eng, dev, counts: dict) -> dict:
     return out
 
 
+#: bench.py's post stages beside its default (phase 5b): (name,
+#: ``BENCH_UPSCALE`` mode, ``BENCH_COMP_CADENCE``, checkpoint file)
+POST_MODES = (("net", "net", 1, "upscaler.pkl"),
+              ("residual", "residual", 1, "residual_head.pkl"),
+              ("temporal_cadence2", "temporal", 2, None),
+              ("none", "none", 1, None))
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet, at 700 W)
+BF16_FLOPS_PER_S = 989e12
+#: substrings that name a convolution's own kernels (cuDNN's, CUTLASS's)
+CONV_MARKS = ("conv", "xmma", "gemm", "cutlass", "cudnn", "fprop",
+              "implicit")
+
+
+def conv_flops(net, height: int, width: int) -> float:
+    """FLOP of ``net``'s 3x3 convs on a ``height x width`` low-res frame:
+    pixels x 9 taps x sum(Cin x Cout) x 2."""
+    from rvgrt_tpu_torch.upscale import model
+
+    macs = sum(m.weight.shape[0] * m.weight.shape[1]
+               for m in net.modules() if isinstance(m, model._Conv))
+    return 2.0 * 9 * height * width * macs
+
+
+def flop_bounds(height: int, width: int) -> dict:
+    """Each learned net's conv FLOP a frame and the least time they take
+    at the card's dense bf16 peak."""
+    from rvgrt_tpu_torch import models
+    from rvgrt_tpu_torch.upscale import residual
+
+    nets = {v: models.get(f"upscaler/{v}") for v in ("up-s", "up-m", "up-l")}
+    nets["residual_head"] = residual.ResidualHead()
+    out = {}
+    for k, net in nets.items():
+        f = conv_flops(net, height, width)
+        out[k] = dict(gflop=f / 1e9, bound_ms=f / BF16_FLOPS_PER_S * 1e3)
+    return out
+
+
+def load_nets(dev) -> dict:
+    """The post modes' committed checkpoints on ``dev``, by mode: each
+    file must exist, and each conv of the loaded module must hold the
+    file's kernel (no fresh weights)."""
+    import numpy as np
+
+    from rvgrt_tpu_torch.driver import checkpoint
+    from rvgrt_tpu_torch.upscale import model, residual
+
+    nets = {}
+    for _, mode, _, fname in POST_MODES:
+        if fname is None:
+            continue
+        path = ROOT / "checkpoints" / fname
+        assert path.is_file(), f"missing checkpoint {path}"
+        load = model.load_checkpoint if mode == "net" else \
+            residual.load_checkpoint
+        net = load(str(path), device=dev)
+        tree = checkpoint.load_params(str(path))["params"]["params"]
+        assert sorted(tree) == sorted(n for n, m in net.named_children())
+        for layer, p in tree.items():
+            w = getattr(net, layer).weight.detach().cpu().numpy()
+            assert np.array_equal(w, p["kernel"].transpose(3, 2, 0, 1)), \
+                (fname, layer)
+        nets[mode] = net
+    return nets
+
+
+def profile_parts(parts: dict, top: int = 6) -> dict:
+    """Each ``parts`` callable under ``torch.profiler``: its device busy
+    ms, launches, the device ms of its convolution kernels
+    (``CONV_MARKS``) and its costliest kernels."""
+    out = {}
+    for name, fn in parts.items():
+        wall_ms, busy_ms, launches, kernels = profiled(fn)
+        kernels = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        out[name] = dict(
+            wall_ms=wall_ms, device_busy_ms=busy_ms, device_launches=launches,
+            conv_ms=sum(e.self_device_time_total for e in kernels
+                        if any(m in e.key.lower() for m in CONV_MARKS)) / 1e3,
+            top=[dict(kernel=e.key[:90], calls=e.count,
+                      device_ms=e.self_device_time_total / 1e3)
+                 for e in kernels[:top]])
+    return out
+
+
+def profile_net(mode: str, net, loop, result, cam, dev) -> dict:
+    """Where a learned post-pass's device time goes, on the last frame's
+    inputs: for the upscaler the history warp, the conv stack and the
+    display-resolution tail (sigmoid, bilinear anchor, blend); for the
+    residual head the whole head.  Each part's CUDA-event time (host
+    included) and its profile."""
+    from rvgrt_tpu_torch.upscale import model, residual
+    from rvgrt_tpu_torch.utils.timer import timed_ms
+
+    o = result.out
+    if mode == "net":
+        hist = loop.state
+        warped = model.warp_history(hist, o.motion)
+        up = net.stack(o.color, o.motion, o.depth, cam.jitter, warped)
+        parts = {
+            "warp": lambda: model.warp_history(hist, o.motion),
+            "conv_stack": lambda: net.stack(o.color, o.motion, o.depth,
+                                            cam.jitter, warped),
+            "tail": lambda: net.blend(up, o.color, warped),
+            "upscale": lambda: model.upscale(net, o.color, o.motion,
+                                             o.depth, cam.jitter, hist)}
+    else:
+        st = loop.state
+        parts = {"head": lambda: residual.apply(
+            net, o.color, o.motion, o.depth, cam.jitter, st.history,
+            st.conf)}
+    rep = profile_parts(parts)
+    for k, fn in parts.items():
+        rep[k]["event_ms"] = timed_ms(lambda _, fn=fn: fn(), dev)
+    return rep
+
+
+def phase_post_modes(world, ecfg, pose, dev, frames: int, counts: dict,
+                     modes=POST_MODES, profile: int = 0) -> dict:
+    """bench.py's other post stages on the headline world, each a main
+    path (``counts["post_" + name]``): each of ``modes`` (``POST_MODES``)
+    for ``WARMUP`` + ``frames`` frames of ``driver/frame_loop.py`` at
+    1280x800 along bench.py's path for the mode.  Per mode the frame
+    median and p90, the peak device memory, launches (K1 == traces; K2 a
+    frame under the accumulator, none without it) and, for the learned
+    nets, where their device time goes (``profile_net``) beside the FLOP
+    bound of their convs (``flop_bounds``).  ``profile`` > 0 runs that many
+    more frames of each mode, each under ``torch.profiler`` (device busy
+    ms, idle share, launches; not counted)."""
+    import torch
+
+    from rvgrt_tpu_torch.driver import frame_loop
+    from rvgrt_tpu_torch.trace import wavefront
+
+    nets = load_nets(dev)
+    report = {"flop_bound": flop_bounds(HEIGHT, WIDTH),
+              "checkpoints": {m: f for _, m, _, f in modes if f}}
+    log(f"post modes: FLOP bounds at {WIDTH}x{HEIGHT}: "
+        f"{report['flop_bound']}")
+    for name, mode, cadence, fname in modes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        reset_counts()
+        run = run_loop(world, ecfg, pose, frames, dev, scale=3,
+                       upscaler=mode, net=nets.get(mode),
+                       comp_cadence=cadence)
+        torch.cuda.synchronize()
+        c = counts[f"post_{name}"] = read_counts()
+        st = wavefront.read_stats()
+        rep = loop_report(run, c, st)
+        last = run["results"][-1]
+        n = len(run["ms"])
+        up = mode != "none"
+        check_image(last.image, (3 * HEIGHT, 3 * WIDTH, 3) if up
+                    else (HEIGHT, WIDTH, 3))
+        assert c["K1"] == st["traces"] > 0, (c, st)
+        assert c["K2"] == (n if mode in ("temporal", "residual") else 0), c
+        if frame_loop.adaptive(mode):
+            assert rep["tier_mix"] == expected_mix(frames), rep["tier_mix"]
+        else:
+            assert set(run["rates"]) == {"full"}, run["rates"]
+        rep.update(mode=mode, comp_cadence=cadence, checkpoint=fname,
+                   path=frame_loop.camera_path(mode),
+                   render=f"{WIDTH}x{HEIGHT}" + (
+                       f" -> {3 * WIDTH}x{3 * HEIGHT}" if up else " native"),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   resident_before_gb=resident_gb)
+        if mode in nets:
+            rep["profile"] = profile_net(mode, nets[mode], run["loop"],
+                                         last, run["cams"][-1][1], dev)
+        if profile:
+            # frames n.. continue the loop on the last poses again
+            rep["frame_profiles"] = []
+            for k in range(profile):
+                j = n - profile + k
+                wall, busy, launches, _ = profiled(
+                    lambda: run["loop"].frame(n + k, run["cams"][j][1],
+                                              run["rates"][j]))
+                rep["frame_profiles"].append(dict(
+                    rate=run["rates"][j], gi=(n + k) % 2 == 0,
+                    wall_ms=wall, device_busy_ms=busy,
+                    device_idle_share=1.0 - busy / wall,
+                    device_launches=launches))
+        report[name] = rep
+        log(f"post mode {name}: median {rep['ms_median']:.1f} ms, p90 "
+            f"{rep['ms_p90']:.1f} ms, peak {rep['peak_mem_gb']:.2f} GB, "
+            f"launches {c}, profile {rep.get('profile')}")
+        del run, last
+    return report
+
+
+def round_trip_world(world, ecfg, dev) -> dict:
+    """``checkpoint.save_world`` then ``load_world`` of ``world`` through
+    a temporary file: each timed (host clock, the load synchronised), the
+    file's size, and every array of the loaded world (``sky_y`` and
+    ``trace_table`` derived again) equal to the original's."""
+    import os
+    import tempfile
+
+    import torch
+
+    from rvgrt_tpu_torch.driver import checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "world.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_world(path, world, ecfg, frame_count=14,
+                              gi_offset=4096)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back, fc, go = checkpoint.load_world(path, ecfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    assert (fc, go) == (14, 4096), (fc, go)
+    for k in ("bits", "sdf", "gi", "atlas", "sky_y", "trace_table"):
+        assert torch.equal(getattr(back, k), getattr(world, k)), k
+    w = ecfg.world
+    return dict(world=f"{w.size_x}x{w.size_y}x{w.size_z}", save_s=save_s,
+                load_s=load_s, file_mb=size / 2 ** 20, bit_exact=True)
+
+
+def phase_cli_net(dev, counts: dict, frames: int = 4) -> dict:
+    """The CLI with the learned upscaler, a main path
+    (``counts["cli_net"]``): ``cli.main(["--config", "tiny", "--frames",
+    4, "--upscale", "checkpoints/upscaler_r2.pkl", "--out", dir])`` on the
+    GPU; 3x PNGs written, K1 launches == traces, no K2."""
+    import tempfile
+
+    import torch
+
+    from rvgrt_tpu_torch.driver import cli
+    from rvgrt_tpu_torch.trace import wavefront
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_counts()
+        stats = cli.main(["--config", "tiny", "--frames", str(frames),
+                          "--upscale",
+                          str(ROOT / "checkpoints" / "upscaler_r2.pkl"),
+                          "--out", out_dir])
+        torch.cuda.synchronize(dev)
+        c = counts["cli_net"] = read_counts()
+        st = wavefront.read_stats()
+        pngs = sorted(Path(out_dir).glob("*.png"))
+        head = pngs[-1].read_bytes()[:24] if pngs else b""
+    r = cli.tiny_config().render
+    size = (int.from_bytes(head[16:20], "big"),
+            int.from_bytes(head[20:24], "big"))
+    assert stats["written"] == len(pngs) == frames, (stats, len(pngs))
+    assert size == (3 * r.width, 3 * r.height), size
+    assert c["K1"] == st["traces"] > 0 and c["K2"] == 0, (c, st)
+    return dict(stats, png_size=size, launches=c, traces=st["traces"],
+                frame_ms_median=statistics.median(stats["frame_ms"][1:]))
+
+
 def phase_cli(dev, config: str, frames: int, counts: dict) -> tuple:
     """The port's headless driver as a user runs it:
     ``cli.main(["--config", config, "--frames", frames, "--fly",
@@ -1451,7 +1777,7 @@ KERNELS = {
 def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
         profile: int = 0, cli_config: str = "stage4",
         cli_frames: int = 6, big_worlds=tuple(BIG_WORLDS),
-        big_frames: int = 6) -> dict:
+        big_frames: int = 6, post_frames: int = 6) -> dict:
     import gc
 
     import torch
@@ -1562,6 +1888,18 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     del outs
     lap("full_rate")
 
+    # ---- main paths: bench.py's other post stages, the world checkpoint
+    # and the CLI with the learned upscaler ----
+    report["post_modes"] = phase_post_modes(eng.world, ecfg, pose, dev,
+                                            post_frames, counts)
+    lap("post_modes")
+    report["world_checkpoint"] = round_trip_world(eng.world, ecfg, dev)
+    log(f"world checkpoint: {report['world_checkpoint']}")
+    lap("world_checkpoint")
+    report["cli_net"] = phase_cli_net(dev, counts)
+    log(f"CLI with the learned upscaler: {report['cli_net']}")
+    lap("cli_net")
+
     # ---- main path: the traced GI init, 2^24 lanes in one trace ----
     report["gi_init"] = phase_gi_init(eng, dev, counts)
     report["gi_init"]["heightfield_init_s"] = \
@@ -1667,6 +2005,8 @@ def main(argv=None) -> int:
                     help="timed config-4 frames, after 2 warm-ups")
     ap.add_argument("--full-frames", type=int, default=4,
                     help="timed full-rate frames, after 2 warm-ups")
+    ap.add_argument("--post-frames", type=int, default=6,
+                    help="timed frames of each post mode, after 2 warm-ups")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after the checks, profile N more headline frames "
                          "with torch.profiler (device busy time, idle "
@@ -1708,7 +2048,8 @@ def main(argv=None) -> int:
 
     report = run(torch.device("cuda"), args.cube, args.frames,
                  args.c4_frames, args.full_frames, profile=args.profile,
-                 big_worlds=worlds, big_frames=args.big_frames)
+                 big_worlds=worlds, big_frames=args.big_frames,
+                 post_frames=args.post_frames)
     report["card"] = card
     report["wall_s"] = time.perf_counter() - t0
     if args.out:
@@ -1717,6 +2058,8 @@ def main(argv=None) -> int:
     print(json.dumps({k: report[k] for k in (
         "build", "headline", "config4", "full_rate", "gi_init", "cli",
         "respite_cost", "probe", "phase_wall_s", "wall_s")}), flush=True)
+    print(json.dumps({k: report[k] for k in (
+        "post_modes", "world_checkpoint", "cli_net")}), flush=True)
     for n in worlds:
         print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)

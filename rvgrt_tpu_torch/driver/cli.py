@@ -15,8 +15,12 @@ temporal`` runs the analytic temporal super-resolution accumulator at 3x
 with the 9-phase jitter; its history warp is the exact 4-tap gather of the
 CUDA kernel K2 (``warp_taps="pallas"``), where the JAX CLI keeps the
 accumulator's default ``bilinear_shift``, a one-gather approximation
-chosen for the TPU's gather cost.  The learned upscaler (``--upscale
-fresh`` or a params path) is not ported.
+chosen for the TPU's gather cost.  ``--upscale fresh`` runs the learned
+upscaler (``upscale/model.py``) with fresh weights from a seeded generator
+(a zero shuffle conv: its first output is the bilinear anchor blended with
+the empty history), ``--upscale PATH`` with a checkpoint's
+(``model.load_checkpoint``, e.g. ``checkpoints/upscaler_r2.pkl``); its
+history is the previous 3x output and the 3x image goes to the sink.
 """
 
 from __future__ import annotations
@@ -37,8 +41,7 @@ from rvgrt_tpu_torch.driver.engine import Engine
 from rvgrt_tpu_torch.scene.camera import InputState
 from rvgrt_tpu_torch.utils.timer import FrameTimeAverager
 
-#: the temporal accumulator's display scale (the JAX package takes it from
-#: its learned upscaler, ``rvgrt_tpu/upscale/model.py:28``)
+#: the upscalers' display scale
 SCALE = 3
 
 CONFIGS = {
@@ -146,14 +149,13 @@ def main(argv=None) -> dict:
                    help="move forward + turn during the path")
     p.add_argument("--upscale", default=None, metavar="MODE",
                    help="'temporal': the analytic temporal super-resolution "
-                        "accumulator at 3x (upscale/temporal.py)")
+                        "accumulator at 3x (upscale/temporal.py); 'fresh' or "
+                        "a params path: the learned 3x upscaler "
+                        "(upscale/model.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs every "
                         "kernel's plain PyTorch version)")
     args = p.parse_args(argv)
-    if args.upscale not in (None, "temporal"):
-        p.error(f"--upscale {args.upscale}: the learned upscaler is not "
-                f"ported (ROADMAP.md Queue 1 item 10); use 'temporal'")
 
     ecfg = tiny_config() if args.config == "tiny" else CONFIGS[args.config]()
     dev = torch.device(args.device)
@@ -173,7 +175,7 @@ def main(argv=None) -> dict:
 
         sink = FrameSink(args.out)
     avg = FrameTimeAverager()
-    t_state = None
+    t_state = net = history = None
     if args.upscale == "temporal":
         from rvgrt_tpu_torch.scene.camera import phase_jitter_sequence
         from rvgrt_tpu_torch.upscale import temporal
@@ -183,6 +185,18 @@ def main(argv=None) -> dict:
         eng.character.jitter_sequence = phase_jitter_sequence(SCALE)
         t_state = temporal.init_state(ecfg.render.height, ecfg.render.width,
                                       scale=SCALE, device=dev)
+    elif args.upscale:
+        from rvgrt_tpu_torch.upscale import model as up_model
+
+        if args.upscale == "fresh":
+            net = up_model.init_params(
+                ecfg.render.height, ecfg.render.width,
+                generator=torch.Generator().manual_seed(0), device=dev)
+        else:
+            net = up_model.load_checkpoint(args.upscale, device=dev)
+        history = torch.zeros(ecfg.render.height * SCALE,
+                              ecfg.render.width * SCALE, 3,
+                              dtype=torch.float32, device=dev)
 
     frame_ms = []
     for i in range(args.frames):
@@ -197,6 +211,12 @@ def main(argv=None) -> dict:
                 out.color, out.motion, out.depth, jitter, t_state,
                 warp_taps="pallas")
             img = to_u8(hi).cpu().numpy()
+        elif net is not None:
+            jitter = torch.tensor(eng.character.ray_jitter_ndc(),
+                                  dtype=torch.float32, device=dev)
+            history, _ = up_model.upscale(net, out.color, out.motion,
+                                          out.depth, jitter, history)
+            img = to_u8(history).cpu().numpy()
         else:
             img = to_u8(out.color).cpu().numpy()
         hit = float((out.depth < 1).float().mean())

@@ -16,20 +16,58 @@ same frames.  Per frame ``i``:
    gaps (``bench.py:536-539``, ``:560-598``);
 4. the base frame on the rate-cut grid with its G-buffer, the GI
    composite, the expand of colour, motion and depth to the full grid, the
-   valid mask, and ``temporal_upscale(valid=..., warp_taps="pallas")``
-   (``bench.py:355-435`` with a composite every frame).
+   valid mask, and the post stage (``bench.py:355-435``).
+
+The post stage is one of ``bench.py``'s ``BENCH_UPSCALE`` modes
+(``FrameLoop(upscaler=...)``, ``bench.py:72-133``, ``:294-323``,
+``:421-435``):
+
+* ``"temporal"`` (the default): ``temporal_upscale(valid=...,
+  warp_taps="pallas")``, the history warp through K2;
+* ``"net"``: the learned upscaler (``upscale/model.py``, a checkpoint such
+  as ``checkpoints/upscaler.pkl``), its history the previous 3x output
+  warped by a plain gather, no valid mask;
+* ``"residual"``: the accumulator as in ``"temporal"``, then the learned
+  residual head (``upscale/residual.py``) as a post-pass on its output and
+  confidence; the accumulator's state carries on unchanged;
+* ``"none"``: native output, no upscale (``BENCH_UPSCALE=0``).
+
+At scale 1 (config-4) every mode but ``"temporal"`` is native output, as
+``bench.py`` runs them there.  ``comp_cadence`` > 1 is
+``BENCH_COMP_CADENCE``: frame ``i`` re-adds the carried full-resolution
+addend of the last composite, re-selected at its own rate and phase,
+instead of compositing when ``i % comp_cadence != 0`` (``bench.py:382-399``,
+``:516-523``, ``:543``).
+
+Only ``"temporal"`` runs the motion-adaptive rate tier.  ``bench.py``
+decides that (``bench.py:90-99``) before it turns ``BENCH_UPSCALE=residual``
+into the accumulator (``:305``), so ``"residual"``, like ``"net"`` and
+``"none"``, renders every frame at full rate along the constant ``"pan"``
+path (``adaptive``, ``camera_path``); ``"net"`` and ``"none"`` take the
+reference's 8-phase jitter table, the accumulator's modes the 9-phase one
+(``jitter_sequence``, ``bench.py:475-476``).
 
 The poses come from the caller: ``path_yaws`` is ``bench.py``'s camera path
 (``:263-290``) and ``path_cameras`` turns it into per-frame cameras through
 a ``Character``, which supplies the view-projection matrices and the
 jitter, as ``Engine.step`` does.  Three things of ``bench.py`` are not
-copied: its cameras carry identity matrices (every motion vector 0), it
-passes frame 0 to every GI window, and it renders every frame with the
-water clock at ``time_s=0``; here the matrices are the Character's, the GI
-frame number is the frame index, and the water clock advances 1/60 s a
-frame (``path_cameras``), which changes the shade of water pixels, not the
-work.  Its extra warm-up frames, which exist to compile graphs, have no
-counterpart.
+copied, in every mode: its cameras carry identity matrices (every motion
+vector 0), it passes frame 0 to every GI window, and it renders every frame
+with the water clock at ``time_s=0``; here the matrices are the
+Character's, the GI frame number is the frame index, and the water clock
+advances 1/60 s a frame (``path_cameras``), which changes the shade of
+water pixels, not the work.  Its extra warm-up frames, which exist to
+compile graphs, have no counterpart.  Beside those, per mode:
+
+* ``"net"``: ``bench.py`` falls back to fresh weights (``init_params``)
+  when ``checkpoints/upscaler.pkl`` is missing; the loop takes the net it
+  is given and refuses none;
+* ``"residual"``: ``bench.py`` falls back to the plain accumulator when
+  ``checkpoints/residual_head.pkl`` is missing; the loop refuses to run
+  without a head;
+* ``"temporal"`` with ``comp_cadence`` 1: ``bench.py`` carries a (1, 1, 3)
+  placeholder addend to keep its compiled graphs' shapes fixed; the loop
+  carries none.
 """
 
 from __future__ import annotations
@@ -42,10 +80,13 @@ from rvgrt_tpu_torch.config import EngineConfig
 from rvgrt_tpu_torch.driver.engine import World, camera_arrays
 from rvgrt_tpu_torch.gi import update as gi_update
 from rvgrt_tpu_torch.render import pipeline
-from rvgrt_tpu_torch.render.scheduler import (RATE_CHECKER, RATE_QUARTER,
+from rvgrt_tpu_torch.render.scheduler import (RATE_CHECKER, RATE_FULL,
+                                              RATE_QUARTER,
                                               AdaptiveRateScheduler)
-from rvgrt_tpu_torch.scene.camera import Camera, Character, InputState
-from rvgrt_tpu_torch.upscale import temporal
+from rvgrt_tpu_torch.scene.camera import (JITTER_SEQUENCE, Camera, Character,
+                                          InputState, phase_jitter_sequence)
+from rvgrt_tpu_torch.upscale import model as up_model
+from rvgrt_tpu_torch.upscale import residual, temporal
 from rvgrt_tpu_torch.utils.device import resolve_device
 
 #: bench.py's interactive path, rad of yaw a frame: fast pan, slow look,
@@ -57,6 +98,30 @@ PAN = 0.35
 WARMUP = 2
 #: a GI window every 2nd frame (bench.py's ``BENCH_GI_CADENCE`` default)
 GI_CADENCE = 2
+#: bench.py's ``BENCH_UPSCALE`` modes (module docstring)
+UPSCALERS = ("temporal", "net", "residual", "none")
+
+
+def adaptive(upscaler: str) -> bool:
+    """Whether ``bench.py`` runs the motion-adaptive rate tier under
+    ``upscaler``: under the plain accumulator only (module docstring)."""
+    if upscaler not in UPSCALERS:
+        raise ValueError(f"unknown upscaler {upscaler!r}")
+    return upscaler == "temporal"
+
+
+def camera_path(upscaler: str) -> str:
+    """``bench.py``'s camera path under ``upscaler``: the interactive
+    thirds with the adaptive tier, the constant pan without it."""
+    return "interactive" if adaptive(upscaler) else "pan"
+
+
+def jitter_sequence(upscaler: str):
+    """The jitter table ``bench.py`` renders with under ``upscaler``: the
+    9-phase sequence that covers every display phase of the 3x
+    accumulator, else the reference's 8-phase table."""
+    return (phase_jitter_sequence(3) if upscaler in ("temporal", "residual")
+            else JITTER_SEQUENCE)
 
 
 def path_yaws(frames: int, path: str = "interactive") -> list[float]:
@@ -100,10 +165,14 @@ def path_cameras(character: Character, yaws, time_s: float = 0.0,
     return out
 
 
-def rate_schedule(poses, ecfg: EngineConfig) -> list[str]:
+def rate_schedule(poses, ecfg: EngineConfig,
+                  adaptive: bool = True) -> list[str]:
     """The rate of each frame from consecutive poses: the first frame at
     checkerboard rate (no history yet), then the scheduler's pick, which
-    looks one pose back as an interactive session would."""
+    looks one pose back, as a live flythrough would.  Without
+    ``adaptive``, every frame at full rate."""
+    if not adaptive:
+        return [RATE_FULL] * len(poses)
     r = ecfg.render
     sched = AdaptiveRateScheduler(r.width, r.height, r.fov_degrees)
     return [RATE_CHECKER] + [sched.step(a, b)
@@ -128,22 +197,90 @@ class FrameResult(NamedTuple):
 
 class FrameLoop:
     """``bench.py``'s frame at one operating point: the world, the GI grid
-    it updates, the window offset and the temporal state it carries.
+    it updates, the window offset and the post stage's state it carries
+    (the accumulator's ``TemporalState``, the net's 3x history, or None).
     ``scale`` 3 is the display upscale of the headline, 1 native-res
-    reconstruction (config-4).  ``overflow`` sums the respite's
-    ``straggler_overflow`` over the GI windows, on the device."""
+    reconstruction (config-4).  ``upscaler`` is the post stage's mode and
+    ``net`` its learned module: an ``UpscalerNet`` for ``"net"``, a
+    ``ResidualHead`` for ``"residual"``.  ``comp_cadence`` > 1 reuses the
+    GI composite's addend between composites.  ``overflow`` sums the
+    respite's ``straggler_overflow`` over the GI windows, on the device."""
 
-    def __init__(self, world: World, ecfg: EngineConfig, scale: int = 3):
+    def __init__(self, world: World, ecfg: EngineConfig, scale: int = 3,
+                 upscaler: str = "temporal", net=None,
+                 comp_cadence: int = 1):
+        adaptive(upscaler)  # validates the name
+        if upscaler != "temporal" and scale != 3:
+            upscaler = "none"  # bench.py upscales only at the headline
+        if upscaler in ("net", "residual") and net is None:
+            raise ValueError(f"upscaler {upscaler!r} needs its net")
+        if comp_cadence < 1:
+            raise ValueError(f"comp_cadence {comp_cadence} < 1")
         self.world = world
         self.ecfg = ecfg
+        self.upscaler = upscaler
+        self.net = net
+        self.comp_cadence = comp_cadence
         dev = world.bits.device
         r = ecfg.render
-        self.state = temporal.init_state(r.height, r.width, scale=scale,
-                                         device=dev)
+        if upscaler in ("temporal", "residual"):
+            self.state = temporal.init_state(r.height, r.width, scale=scale,
+                                             device=dev)
+        elif upscaler == "net":
+            self.state = torch.zeros(r.height * scale, r.width * scale, 3,
+                                     dtype=torch.float32, device=dev)
+        else:
+            self.state = None
+        # the last composite's added light at full resolution, re-selected
+        # at each reusing frame's rate and phase
+        self.addend = (torch.zeros(r.height, r.width, 3,
+                                   dtype=torch.float32, device=dev)
+                       if comp_cadence > 1 else None)
         self.gi = world.gi
         self.offset = 0
         self.gi_windows = 0
         self.overflow = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _composite(self, i: int, color, gb, rate: str, phase: int):
+        """The GI composite of frame ``i``, or the carried addend re-added
+        on a reusing frame (``bench.py:382-399``)."""
+        w, ec = self.world, self.ecfg
+        if self.comp_cadence == 1:
+            return pipeline.gi_composite(color, gb, self.gi, w.sdf, ec)
+        if i % self.comp_cadence != 0:
+            add = self.addend
+            if rate == RATE_CHECKER:
+                add = pipeline.checker_select(add, phase)
+            elif rate == RATE_QUARTER:
+                add = pipeline.quarter_select(add, phase)
+            return torch.clamp(color + add, 0.0, 1.0)
+        color, add = pipeline.gi_composite(color, gb, self.gi, w.sdf, ec,
+                                           return_addend=True)
+        if rate == RATE_CHECKER:
+            add = pipeline.checker_expand(add, phase)
+        elif rate == RATE_QUARTER:
+            add = pipeline.quarter_expand(add)
+        self.addend = add
+        return color
+
+    def _post(self, out: pipeline.FrameOutputs, cam: pipeline.CameraArrays,
+              valid) -> torch.Tensor:
+        """The post stage of the loop's mode; returns the frame's image."""
+        if self.upscaler == "none":
+            return out.color
+        if self.upscaler == "net":
+            image, _ = up_model.upscale(self.net, out.color, out.motion,
+                                        out.depth, cam.jitter, self.state)
+            self.state = image
+            return image
+        image, self.state = temporal.temporal_upscale(
+            out.color, out.motion, out.depth, cam.jitter, self.state,
+            valid=valid, warp_taps="pallas")
+        if self.upscaler == "residual":
+            image = residual.apply(self.net, out.color, out.motion,
+                                   out.depth, cam.jitter, image,
+                                   self.state.conf)
+        return image
 
     def frame(self, i: int, cam: pipeline.CameraArrays,
               rate: str) -> FrameResult:
@@ -164,8 +301,8 @@ class FrameLoop:
             sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True,
             checker_parity=phase if rate == RATE_CHECKER else None,
             quarter_phase=phase if rate == RATE_QUARTER else None)
-        out = out._replace(color=pipeline.gi_composite(out.color, gb,
-                                                       self.gi, w.sdf, ec))
+        out = out._replace(color=self._composite(i, out.color, gb, rate,
+                                                 phase))
         dev = out.color.device
         valid = None
         if rate == RATE_CHECKER:
@@ -181,8 +318,5 @@ class FrameLoop:
             out = out._replace(color=expand(out.color),
                                motion=expand(out.motion),
                                depth=expand(out.depth))
-        image, self.state = temporal.temporal_upscale(
-            out.color, out.motion, out.depth, cam.jitter, self.state,
-            valid=valid, warp_taps="pallas")
         return FrameResult(rate=rate, phase=phase, gi_ran=gi_ran, out=out,
-                           hit=gb.hit, image=image)
+                           hit=gb.hit, image=self._post(out, cam, valid))

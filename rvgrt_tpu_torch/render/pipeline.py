@@ -18,9 +18,10 @@ single slab, at full, checkerboard or quarter rate - the branches
 Every trace goes through ``wavefront.trace`` and so, on a GPU, kernel K1.
 The checker and quarter rates cut the primary grid before the primary
 trace (``checker_select`` / ``quarter_select``); their expands and valid
-masks are here too.  Not ported yet: the temporal start hints, the
-start/shadow overrides, ``gi_composite(return_addend=True)`` (the
-composite-cadence reuse) and the sharded slab halo.
+masks are here too, and ``gi_composite(return_addend=True)`` hands out
+the added light for the composite-cadence reuse.  Not ported yet: the
+temporal start hints, the start/shadow overrides and the sharded slab
+halo.
 """
 
 from __future__ import annotations
@@ -650,10 +651,14 @@ def render_frame(bits, sdf, gi, atlas, cam: CameraArrays,
                        quarter_phase=quarter_phase)
 
 
-def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig):
+def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig,
+                 return_addend: bool = False):
     """Add cone-traced indirect + sky ambient onto a GI-less base color
     (the split-dispatch half of the GI frame): the added light is scaled by
-    the fog transmittance the base was composited with."""
+    the fog transmittance the base was composited with.  With
+    ``return_addend``: ``(out, add)``, the added-light image too, for
+    re-adding to a later frame's base (``bench.py``'s composite cadence:
+    indirect light is low-frequency and geometry-attached)."""
     cfg, rcfg, lcfg = ecfg.world, ecfg.render, ecfg.lighting
     ir, ig, ib = gather_gi_image(gb, gi, sdf, cfg, rcfg, lcfg)
     albedo = (gb.albedo_r, gb.albedo_g, gb.albedo_b)
@@ -665,4 +670,7 @@ def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig):
     solid = gb.hit & ~(gb.py < lcfg.water_level)
     scale = torch.where(solid, gb.fog, 0.0)
     add = torch.stack(vm.scale(vm.add(indirect, ambient), scale), dim=-1)
-    return torch.clamp(color + add, 0.0, 1.0)
+    out = torch.clamp(color + add, 0.0, 1.0)
+    if return_addend:
+        return out, add
+    return out

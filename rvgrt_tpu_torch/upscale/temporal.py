@@ -12,17 +12,22 @@ with motion-vector reprojection + neighborhood variance clipping.
   display pixel, so reprojection is one gather (``_warp_state``); taps
   ``"pallas"`` run the hand-written CUDA warp kernel (K2,
   ``ops/warp_kernels.py``; the name is kept so one config string means the
-  same in both packages), ``"bilinear"`` its plain version and
-  ``"bilinear_shift"`` (the JAX default) one gather + output-space shifts;
+  same in both packages), ``"bilinear"`` its plain version,
+  ``"bilinear_shift"`` (the JAX default) one gather + output-space shifts,
+  ``"catmull_shift"`` a Catmull-Rom resample from the same one gather and
+  ``"nearest"`` one rounded tap;
 * rectification clamps to mean +- gamma*std over the 3x3 low-res
   neighborhood, nearest-upsampled;
 * blending is a running average with a confidence count;
 * rate-cut frames (checkerboard, quarter) pass ``valid``: untraced pixels
-  keep their history and enter at a small weight.
+  keep their history and enter at a small weight;
+* ``depth_reject``: the previous low-res depth, carried in the state, is
+  warped by the motion field and compared with this frame's; history
+  confidence drops where geometry appeared or vanished.
 
 The same accumulator runs at scale 1 as native-resolution reconstruction
-(``bench.py``'s config-4).  Not ported yet: ``temporal_upscale_slab``,
-depth rejection, the ``nearest`` and ``catmull_shift`` taps.
+(``bench.py``'s config-4).  ``temporal_upscale_slab`` (the sharded slab)
+is not ported; it comes with ``parallel/``.
 """
 
 from __future__ import annotations
@@ -45,19 +50,25 @@ class TemporalState(NamedTuple):
     """Carried across frames; reset to zeros on camera cuts."""
     history: torch.Tensor  # (SCALE*h, SCALE*w, 3) f32 in [0, 1]
     conf: torch.Tensor     # (SCALE*h, SCALE*w) f32 effective sample count
-    depth: torch.Tensor    # (1, 1) sentinel (depth rejection not ported)
+    # the previous LOW-res clip depth for ``depth_reject``; a (1, 1) zero
+    # sentinel when unused, as in the JAX package
+    depth: torch.Tensor    # (h, w) f32
 
 
 def init_state(height: int, width: int, scale: int = SCALE,
-               device=None) -> TemporalState:
-    """Zero state for a ``height x width`` LOW-res stream."""
+               device=None, depth_reject: bool = False) -> TemporalState:
+    """Zero state for a ``height x width`` LOW-res stream (with
+    ``depth_reject``, a far depth of ones to compare the first frame
+    with)."""
     dev = resolve_device(device)
     return TemporalState(
         history=torch.zeros(height * scale, width * scale, 3, dtype=_F32,
                             device=dev),
         conf=torch.zeros(height * scale, width * scale, dtype=_F32,
                          device=dev),
-        depth=torch.zeros(1, 1, dtype=_F32, device=dev))
+        depth=(torch.ones(height, width, dtype=_F32, device=dev)
+               if depth_reject else
+               torch.zeros(1, 1, dtype=_F32, device=dev)))
 
 
 def state_from_numpy(d: dict, device=None) -> TemporalState:
@@ -236,11 +247,53 @@ def _warp_state(state: TemporalState, motion_lowres: torch.Tensor,
         v = ((1 - fx) * (1 - fy) * v00 + fx * (1 - fy) * v01
              + (1 - fx) * fy * v10 + fx * fy * v11)
         return v[:3], v[3] * inside
+    if taps == "nearest":
+        # one rounded tap: a <= 0.5 px resample shift a frame
+        rgb, n = _unpack_rgbn_cf(packed[torch.round(y).long(),
+                                        torch.round(x).long()])
+        return rgb, n * inside
+    if taps == "catmull_shift":
+        # a Catmull-Rom resample at the same one-gather cost: the 4x4 taps
+        # are output-space shifts of the floor tap (bilinear_shift's
+        # trick, one ring wider); rgb clamped (the lobes overshoot), the
+        # confidence bilinear over the centre 2x2 (a count stays >= 0)
+        x0 = torch.floor(x).to(_I32)
+        y0 = torch.floor(y).to(_I32)
+        fx = (x - x0.to(_F32))[None]
+        fy = (y - y0.to(_F32))[None]
+        rgb00, n00 = _unpack_rgbn_cf(packed[y0.long(), x0.long()])
+        v00 = torch.cat([rgb00, n00[None]], dim=0)  # (4, H, W)
+
+        def cr_w(t):
+            # Catmull-Rom weights of the taps at -1, 0, +1, +2
+            t2 = t * t
+            t3 = t2 * t
+            return (f32(-0.5) * t + t2 - f32(0.5) * t3,
+                    f32(1.0) - f32(2.5) * t2 + f32(1.5) * t3,
+                    f32(0.5) * t + f32(2.0) * t2 - f32(1.5) * t3,
+                    f32(-0.5) * t2 + f32(0.5) * t3)
+
+        wx = cr_w(fx)
+        wy = cr_w(fy)
+        cols = [_shift_cf(v00, m, axis=2) for m in (-1, 0, 1, 2)]
+        rgb = torch.zeros_like(v00[:3])
+        for j, m in enumerate((-1, 0, 1, 2)):
+            row = torch.zeros_like(v00[:3])
+            for k in range(4):
+                row = row + wx[k] * _shift_cf(cols[k], m, axis=1)[:3]
+            rgb = rgb + wy[j] * row
+        n_acc = torch.zeros_like(v00[3])
+        for m in (0, 1):
+            for k in (1, 2):
+                bw = ((fx if k == 2 else 1.0 - fx)
+                      * (fy if m == 1 else 1.0 - fy))[0]
+                n_acc = n_acc + bw * _shift_cf(cols[k], m, axis=1)[3]
+        return torch.clamp(rgb, 0.0, 1.0), n_acc * inside
     if taps == "bilinear":
         # exact 4-tap gather: the warp kernel's plain version
         planes, _ = warp_kernels.warp_packed_bilinear_plain(packed, x, y)
         return planes[:3], planes[3] * _CONF_MAX * inside
-    raise ValueError(f"warp taps {taps!r} are not ported")
+    raise ValueError(f"unknown warp taps {taps!r}")
 
 
 def _current_weight(jitter_ndc: torch.Tensor, height: int, width: int,
@@ -275,7 +328,9 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
                      gamma_static: float = 1.5, gamma_moving: float = 0.6,
                      beta_static: float = 8.0, beta_moving: float = 40.0,
                      adapt_rate: float = 8.0, valid=None,
-                     invalid_weight: float = 0.05):
+                     invalid_weight: float = 0.05,
+                     depth_reject: bool = False, depth_tau: float = 0.25,
+                     depth_conf: float = 0.1):
     """One frame of temporal super-resolution.  Returns ``(out,
     new_state)`` with ``out`` (scale*h, scale*w, 3); the scale (3 for the
     display upscale, 1 for native-res reconstruction) is the state's.
@@ -284,8 +339,14 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
     low-res pixel (``pipeline.checker_valid_mask`` /
     ``quarter_valid_mask``).  An untraced pixel keeps its history
     unclamped (its neighbourhood box is built from filled copies) and its
-    current sample enters at ``invalid_weight`` x the normal weight."""
-    del depth  # depth rejection is not ported
+    current sample enters at ``invalid_weight`` x the normal weight.
+
+    ``depth_reject`` (the state from ``init_state(depth_reject=True)``):
+    the previous low-res clip depth is warped by the motion field (one
+    nearest gather) and compared with ``depth`` in linearised units;
+    history confidence drops to ``depth_conf`` x where they differ by more
+    than ``depth_tau`` relative (the reference tags depth for DLSS for
+    this, ``main.cpp:489-495``)."""
     h, w = color.shape[0], color.shape[1]
     scale = state.history.shape[0] // h
     assert state.history.shape[0] == scale * h, (state.history.shape, h)
@@ -293,6 +354,28 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
     cur = jitter_upsample(color, jitter_ndc, scale=scale)  # (3, H, W)
     hist, n_prev = _warp_state(state, motion, taps=warp_taps,
                                motion_decay=motion_decay)
+
+    if depth_reject:
+        # the previous depth warped as the history is (an (h, w) nearest
+        # gather), both linearised (GL clip depth -> 1 at far:
+        # 1/(1.001 - d) is monotone in view depth, so the test is
+        # scale-free)
+        dev = color.device
+        xs = torch.arange(w, dtype=_F32, device=dev)[None, :] \
+            - motion[..., 0] * (0.5 * w)
+        ys = torch.arange(h, dtype=_F32, device=dev)[:, None] \
+            - motion[..., 1] * (0.5 * h)
+        inside = ((xs >= 0.0) & (xs <= w - 1.0)
+                  & (ys >= 0.0) & (ys <= h - 1.0))
+        xi = torch.clamp(torch.round(xs).to(_I32), 0, w - 1).long()
+        yi = torch.clamp(torch.round(ys).to(_I32), 0, h - 1).long()
+        d_prev = state.depth[yi, xi]
+        lw = 1.0 / (f32(1.001) - torch.clamp_max(d_prev, 1.0))
+        lc = 1.0 / (f32(1.001) - torch.clamp_max(depth, 1.0))
+        occl = inside & (torch.abs(lw - lc)
+                         > f32(depth_tau) * torch.maximum(lw, lc))
+        keep = torch.where(occl, f32(depth_conf), f32(1.0))
+        n_prev = n_prev * _nearest_up(keep, scale)
 
     # motion-adaptive rectification: wide box + soft beta where still,
     # tight box + harsh beta where moving; explicit scalars override
@@ -338,4 +421,5 @@ def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,
     out_cf = torch.clamp(out_cf, 0.0, 1.0)
     n_new = torch.clamp_max(den, _CONF_MAX)
     out = out_cf.permute(1, 2, 0).contiguous()
-    return out, TemporalState(history=out, conf=n_new, depth=state.depth)
+    return out, TemporalState(history=out, conf=n_new,
+                              depth=depth if depth_reject else state.depth)

@@ -8,9 +8,11 @@ same averages on a fixed clock.  ``cli.main(["--config", "tiny",
 "--frames", "2", "--device", "cpu", "--out", dir])`` - the traced GI init,
 two ``Engine.step`` frames, the native PNG sink built from
 ``native/framesink.cpp`` - writes two PNGs whose pixels are the engine's
-frames quantised (decoded here with ``zlib``).  The learned upscaler is
-refused.  Everything JAX does here is integer or host work, so it runs in
-this process.
+frames quantised (decoded here with ``zlib``).  With ``--upscale fresh``
+and ``--upscale checkpoints/upscaler_r2.pkl`` the PNGs are the learned
+upscaler's 3x frames, each over the previous one as its history.
+Everything JAX does here is integer or host work, so it runs in this
+process.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from rvgrt_tpu.utils import timer as jtimer
 from rvgrt_tpu_torch.core import u32
 from rvgrt_tpu_torch.driver import cli
 from rvgrt_tpu_torch.driver.videosink import VideoSink
+from rvgrt_tpu_torch.upscale import model as up_model
 from rvgrt_tpu_torch.utils import timer
+from tests import torch_jaxref as ref
 
 FRAMES = 2
 
@@ -56,11 +60,9 @@ def read_png(path) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 3)
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    """One CLI run at tiny on the CPU, with its engine and each frame that
-    ``Engine.step`` returned."""
-    out = tmp_path_factory.mktemp("frames")
+def _run_cli(out, *extra):
+    """One CLI run at tiny on the CPU: its stats, its engine, and each
+    frame that ``Engine.step`` returned with the jitter after it."""
     seen = {}
     real = cli.Engine
 
@@ -69,19 +71,26 @@ def run(tmp_path_factory):
             super().__init__(*a, **kw)
             seen["eng"] = self
             seen["frames"] = []
+            seen["jitters"] = []
 
         def step(self, *a, **kw):
             res = super().step(*a, **kw)
             seen["frames"].append(res)
+            seen["jitters"].append(self.character.ray_jitter_ndc())
             return res
 
     cli.Engine = Recording
     try:
         stats = cli.main(["--config", "tiny", "--frames", str(FRAMES),
-                          "--device", "cpu", "--out", str(out)])
+                          "--device", "cpu", "--out", str(out), *extra])
     finally:
         cli.Engine = real
     return dict(seen, stats=stats, out=out)
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    return _run_cli(tmp_path_factory.mktemp("frames"))
 
 
 def test_configs_equal_jax():
@@ -130,12 +139,31 @@ def test_spawn_equals_jax(run, column):
         want_eng.character.yaw, want_eng.character.pitch)
 
 
-@pytest.mark.parametrize("upscale", ["fresh", "checkpoints/x.pkl"])
-def test_cli_refuses_the_learned_upscaler(upscale, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--upscale", upscale, "--device", "cpu"])
-    assert e.value.code == 2
-    assert "Queue 1 item 10" in capsys.readouterr().err
+@pytest.mark.parametrize("upscale", ["fresh", "checkpoints/upscaler_r2.pkl"])
+def test_cli_runs_the_learned_upscaler(upscale, tmp_path):
+    """``--upscale fresh|PATH`` writes the net's 3x frames, each upscaled
+    over the previous output as its history."""
+    got = _run_cli(tmp_path, "--upscale", str(ref.REPO / upscale)
+                   if upscale != "fresh" else upscale)
+    assert got["stats"]["written"] == FRAMES
+    if upscale == "fresh":
+        net = up_model.init_params(96, 160,
+                                   generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+        assert float(net.shuffle.weight.abs().max()) == 0.0
+    else:
+        net = up_model.load_checkpoint(str(ref.REPO / upscale), device="cpu")
+        assert (net.features, net.depth_layers) == (32, 3)
+    history = torch.zeros(288, 480, 3)
+    files = sorted(tmp_path.glob("*.png"))
+    assert len(files) == FRAMES
+    for f, out, jit in zip(files, got["frames"], got["jitters"]):
+        history, _ = up_model.upscale(net, out.color, out.motion, out.depth,
+                                      torch.tensor(jit, dtype=torch.float32),
+                                      history)
+        want = cli.to_u8(history).numpy()
+        assert want.shape == (288, 480, 3) and want.std() > 1.0
+        np.testing.assert_array_equal(read_png(f), want)
 
 
 def test_frame_time_averager_equals_jax(monkeypatch):

@@ -19,7 +19,13 @@ traces run the two-phase straggler respite.  Against the JAX package:
   straggler budget 12, 16 384-cell windows so the respite engages) against
   the JAX functions composed in ``bench.py``'s order: the same tiers, GI
   words bit-exact, every base and reconstructed frame >= 50 dB with exact
-  hit classification.
+  hit classification;
+* ``bench.py``'s other post stages through the same loop: the composite
+  cadence 2 (``BENCH_COMP_CADENCE=2``) on those 6 frames, and ``"net"``
+  (``checkpoints/upscaler.pkl``), ``"residual"``
+  (``checkpoints/residual_head.pkl``) and ``"none"`` on 3 full-rate frames
+  of the pan path with the 8-phase jitter, against ``bench.py``'s ``_post``
+  composed in the child: >= 50 dB a frame, hits exact.
 
 The world has ``gi_coarseness=2`` so that its GI grid (32^3 cells) holds a
 16 384-cell window.  The JAX side runs without FMA contraction in one child
@@ -38,10 +44,10 @@ from rvgrt_tpu_torch import config as tcfg
 from rvgrt_tpu_torch.core import u32
 from rvgrt_tpu_torch.driver import engine, frame_loop
 from rvgrt_tpu_torch.render import pipeline
-from rvgrt_tpu_torch.scene.camera import (Camera, Character,
-                                          phase_jitter_sequence)
+from rvgrt_tpu_torch.scene.camera import (JITTER_SEQUENCE, Camera,
+                                          Character, phase_jitter_sequence)
 from rvgrt_tpu_torch.trace import wavefront
-from rvgrt_tpu_torch.upscale import temporal
+from rvgrt_tpu_torch.upscale import model, residual, temporal
 from tests import torch_jaxref as ref
 
 SPEC = {**ref.SLICE_SPEC,
@@ -56,6 +62,11 @@ RATE_CASES = [("checker", 0), ("checker", 1), ("quarter", 0), ("quarter", 1),
 POSE = dict(position=(30.0, 44.0, 60.0), yaw=math.pi + 0.25,
             pitch=-math.pi - 0.18)
 LOOP_FRAMES = 4
+#: the full-rate modes' timed frames along the pan path (+ 2 warm-ups)
+PAN_FRAMES = 1
+CKPT = {"net": str(ref.REPO / "checkpoints" / "upscaler.pkl"),
+        "residual": str(ref.REPO / "checkpoints" / "residual_head.pkl")}
+PAN_MODES = ["net", "residual", "none"]
 SCHED_SIZES = [(128, 80), (1280, 800), (1920, 1080)]
 SCHED_PATHS = ["interactive", "pan"]
 H, W = 80, 128
@@ -113,9 +124,11 @@ def _valid_frames():
     return frames
 
 
-def _loop_cameras():
-    """The port's cameras for the loop: a Character at ``POSE`` along the
-    interactive path, and the same cameras as dicts for the JAX side."""
+def _loop_cameras(path="interactive", frames=LOOP_FRAMES,
+                  jitter=phase_jitter_sequence(3)):
+    """The port's cameras for the loop: a Character at ``POSE`` along
+    ``path`` with the ``jitter`` table, and the same cameras as dicts for
+    the JAX side."""
     ecfg = ref.make_ecfg(tcfg, SPEC)
     r = ecfg.render
     ch = Character(display_width=r.display_width,
@@ -123,8 +136,8 @@ def _loop_cameras():
                    render_height=r.height,
                    position=np.asarray(POSE["position"], np.float32),
                    yaw=POSE["yaw"], pitch=POSE["pitch"],
-                   jitter_sequence=phase_jitter_sequence(3))
-    cams = frame_loop.path_cameras(ch, frame_loop.path_yaws(LOOP_FRAMES),
+                   jitter_sequence=jitter)
+    cams = frame_loop.path_cameras(ch, frame_loop.path_yaws(frames, path),
                                    time_s=0.25, device="cpu")
     dicts = [dict(pos=c.pos.numpy(), forward=c.forward.numpy(),
                   right=c.right.numpy(), up=c.up.numpy(), vp=c.vp.numpy(),
@@ -153,12 +166,20 @@ def _port_renders(world):
     return out
 
 
-def _port_loop(world, cams):
-    """The port's frame loop over ``cams``, with its trace stats."""
+def _port_loop(world, cams, upscaler="temporal", comp_cadence=1):
+    """The port's frame loop over ``cams`` in one of ``bench.py``'s post
+    modes, with its trace stats."""
     ecfg = ref.make_ecfg(tcfg, ref.with_render(SPEC, fused_superstep=True))
     w = engine.world_from_numpy(world, device="cpu")
-    rates = frame_loop.rate_schedule([c for c, _ in cams], ecfg)
-    loop = frame_loop.FrameLoop(w, ecfg, scale=3)
+    rates = frame_loop.rate_schedule(
+        [c for c, _ in cams], ecfg, adaptive=frame_loop.adaptive(upscaler))
+    net = None
+    if upscaler == "net":
+        net = model.load_checkpoint(CKPT["net"], device="cpu")
+    elif upscaler == "residual":
+        net = residual.load_checkpoint(CKPT["residual"], device="cpu")
+    loop = frame_loop.FrameLoop(w, ecfg, scale=3, upscaler=upscaler,
+                                net=net, comp_cadence=comp_cadence)
     wavefront.reset_stats()
     frames = [loop.frame(i, ca, rates[i]) for i, (_, ca) in enumerate(cams)]
     return dict(rates=rates, frames=frames, loop=loop,
@@ -172,6 +193,7 @@ def case():
     world = engine.world_to_numpy(engine.build_world(
         ref.make_ecfg(tcfg, SPEC), verbose=False, device="cpu"))
     cams, cam_dicts = _loop_cameras()
+    pan, pan_dicts = _loop_cameras("pan", PAN_FRAMES, JITTER_SEQUENCE)
     jobs = [("ref_rate_schedule", dict(width=wd, height=ht, fov=60.0,
                                        poses=_bench_poses(path)))
             for path in SCHED_PATHS for wd, ht in SCHED_SIZES]
@@ -186,20 +208,35 @@ def case():
                                      poses=[(c.pos, c.forward)
                                             for c, _ in cams],
                                      gi_cadence=frame_loop.GI_CADENCE,
-                                     scale=3))]
+                                     scale=3,
+                                     modes=(("temporal", 1, None),
+                                            ("temporal", 2, None)))),
+             ("ref_frame_loop", dict(spec=SPEC, world=world, cams=pan_dicts,
+                                     poses=[(c.pos, c.forward)
+                                            for c, _ in pan],
+                                     gi_cadence=frame_loop.GI_CADENCE,
+                                     scale=3,
+                                     modes=tuple((m, 1, CKPT.get(m))
+                                                 for m in PAN_MODES)))]
     child = ref.start(jobs)
     try:
         port = dict(renders=_port_renders(world),
-                    loop=_port_loop(world, cams))
+                    loop=_port_loop(world, cams),
+                    cadence=_port_loop(world, cams, comp_cadence=2),
+                    modes={m: _port_loop(world, pan, upscaler=m)
+                           for m in PAN_MODES})
     finally:
         res = child.result()
     n = len(SCHED_PATHS) * len(SCHED_SIZES)
     sched = dict(zip([(p, s) for p in SCHED_PATHS for s in SCHED_SIZES],
                      res[:n]))
-    helpers, renders, t3, t1, loop = res[n:]
+    helpers, renders, t3, t1, loop, pan_loop = res[n:]
     return dict(world=world, cams=cams, sched=sched, helpers=helpers,
                 renders=dict(zip(RATE_CASES, renders)),
-                temporal={3: t3, 1: t1}, loop=loop, port=port)
+                temporal={3: t3, 1: t1}, loop=loop, port=port,
+                cadence=dict(loop, frames=loop["modes"][1]),
+                modes={m: dict(pan_loop, frames=f)
+                       for m, f in zip(PAN_MODES, pan_loop["modes"])})
 
 
 @pytest.fixture(scope="module")
@@ -339,3 +376,54 @@ def test_frame_loop_frames_50db(case, port_loop, i):
         assert _psnr_scaled(g, want["out"][f]) >= 50.0, f
     assert got.image.shape == (3 * H, 3 * W, 3)
     assert ref.psnr(got.image.numpy(), want["image"]) >= 50.0
+
+
+def _frames_50db(got, want, image_shape):
+    np.testing.assert_array_equal(got.hit.numpy(), want["hit"])
+    for f in ("color", "motion", "depth"):
+        g = getattr(got.out, f).numpy()
+        assert g.shape == want["out"][f].shape, f
+        assert _psnr_scaled(g, want["out"][f]) >= 50.0, f
+    assert got.image.shape == image_shape
+    assert np.isfinite(got.image.numpy()).all()
+    assert ref.psnr(got.image.numpy(), want["image"]) >= 50.0
+
+
+@pytest.mark.parametrize("i", range(LOOP_FRAMES + frame_loop.WARMUP))
+def test_frame_loop_comp_cadence_frames_50db(case, i):
+    """BENCH_COMP_CADENCE=2: odd frames re-add the carried addend, at their
+    own rate and phase, instead of compositing."""
+    port = case["port"]["cadence"]
+    assert port["rates"] == case["cadence"]["rates"]
+    _frames_50db(port["frames"][i], case["cadence"]["frames"][i],
+                 (3 * H, 3 * W, 3))
+    reused = port["frames"][i].out.color
+    every = case["port"]["loop"]["frames"][i].out.color
+    assert torch.equal(reused, every) == (i % 2 == 0)
+
+
+@pytest.mark.parametrize("i", range(PAN_FRAMES + frame_loop.WARMUP))
+@pytest.mark.parametrize("mode", PAN_MODES)
+def test_frame_loop_post_modes_50db(case, mode, i):
+    port = case["port"]["modes"][mode]
+    want = case["modes"][mode]
+    assert port["rates"] == want["rates"] == ["full"] * len(port["rates"])
+    shape = (H, W, 3) if mode == "none" else (3 * H, 3 * W, 3)
+    _frames_50db(port["frames"][i], want["frames"][i], shape)
+    hits = float(port["frames"][i].hit.float().mean())
+    assert 0.05 < hits < 0.95, hits
+
+
+def test_post_mode_settings_follow_bench():
+    """bench.py decides the adaptive tier from BENCH_UPSCALE before it
+    turns "residual" into the accumulator: only "temporal" is adaptive and
+    flies the interactive path; the accumulator's modes take the 9-phase
+    jitter, the others the reference's 8-phase table."""
+    assert [frame_loop.adaptive(m) for m in frame_loop.UPSCALERS] == [
+        True, False, False, False]
+    assert [frame_loop.camera_path(m) for m in frame_loop.UPSCALERS] == [
+        "interactive", "pan", "pan", "pan"]
+    for m, n in zip(frame_loop.UPSCALERS, (9, 8, 9, 8)):
+        assert len(frame_loop.jitter_sequence(m)) == n, m
+    with pytest.raises(ValueError):
+        frame_loop.adaptive("dlss")

@@ -5,8 +5,11 @@ sequence must reach >= 50 dB per frame against the JAX accumulator with
 its XLA oracle warp (``"bilinear"``, the same 4 taps); the Pallas warp
 kernel itself runs once in interpret mode and must agree with the port's
 plain warp to 1e-6 (the kernel blends weights first, the oracle taps
-first).  The JAX side runs without FMA contraction
-(tests/torch_jaxref.py).
+first).  Over the same sequence, the ``"nearest"`` and ``"catmull_shift"``
+taps, and depth rejection (the sequence with a depth field whose
+occluder moves against the motion vectors, so that history is rejected):
+>= 50 dB a frame, and the carried ``state.depth`` exact.  The JAX side
+runs without FMA contraction (tests/torch_jaxref.py).
 """
 
 from __future__ import annotations
@@ -48,6 +51,23 @@ def _frames():
     return frames
 
 
+def _depth_frames():
+    """``_frames()`` with a depth field: far ground at 0.999 and a near
+    box (0.95) that moves left while the motion vectors pan right, so its
+    old and new edges disagree with the warped depth."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    frames = []
+    for f, fr in enumerate(_frames()):
+        x0 = 70 - 3 * f
+        box = (xx >= x0) & (xx < x0 + 30) & (yy >= 20) & (yy < 50)
+        frames.append(dict(fr, depth=np.where(box, 0.95, 0.999).astype(
+            np.float32)))
+    return frames
+
+
+TAPS = ["nearest", "catmull_shift"]
+
+
 def _warp_inputs():
     rng = np.random.default_rng(21)
     hh, hw = 64, 512
@@ -63,25 +83,32 @@ def _warp_inputs():
 
 @pytest.fixture(scope="module")
 def jax_ref():
-    oracle, shift, warp = ref.run([
+    oracle, shift, warp, *taps, depth = ref.run([
         ("ref_temporal", dict(frames=_frames(), taps="bilinear")),
         ("ref_temporal", dict(frames=_frames()[:3],
                               taps="bilinear_shift")),
         ("ref_warp", _warp_inputs()),
+        *[("ref_temporal", dict(frames=_frames(), taps=t, jit=True))
+          for t in TAPS],
+        ("ref_temporal", dict(frames=_depth_frames(), taps="bilinear",
+                              jit=True, depth_reject=True)),
     ])
-    return dict(oracle=oracle, shift=shift, warp=warp)
+    return dict(oracle=oracle, shift=shift, warp=warp,
+                taps=dict(zip(TAPS, taps)), depth=depth)
 
 
-def _run(frames, taps):
-    state = temporal.init_state(H, W, device="cpu")
-    outs = []
+def _run(frames, taps, depth_reject=False):
+    state = temporal.init_state(H, W, device="cpu",
+                                depth_reject=depth_reject)
+    outs, depths = [], []
     for fr in frames:
         out, state = temporal.temporal_upscale(
             *(torch.from_numpy(fr[k]) for k in ("color", "motion", "depth",
                                                 "jitter")),
-            state, warp_taps=taps)
+            state, warp_taps=taps, depth_reject=depth_reject)
         outs.append(out.numpy())
-    return outs, state
+        depths.append(state.depth.numpy())
+    return (outs, depths) if depth_reject else (outs, state)
 
 
 @pytest.fixture(scope="module")
@@ -113,6 +140,29 @@ def test_bilinear_shift_taps_50db(jax_ref):
     got, _ = _run(_frames()[:3], "bilinear_shift")
     for g, w in zip(got, jax_ref["shift"]):
         assert ref.psnr(g, w) >= 50.0
+
+
+@pytest.mark.parametrize("taps", TAPS)
+def test_temporal_taps_sequence_50db(jax_ref, taps):
+    got, _ = _run(_frames(), taps)
+    for i, (g, w) in enumerate(zip(got, jax_ref["taps"][taps])):
+        assert np.isfinite(g).all(), i
+        assert ref.psnr(g, w) >= 50.0, i
+
+
+def test_temporal_depth_reject_50db(jax_ref):
+    frames = _depth_frames()
+    got, depths = _run(frames, "bilinear", depth_reject=True)
+    want, want_depths = jax_ref["depth"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert ref.psnr(g, w) >= 50.0, i
+    for g, w, fr in zip(depths, want_depths, frames):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, fr["depth"])
+    # the rejection changed the reconstruction
+    plain, _ = _run(frames, "bilinear")
+    assert max(float(np.abs(a - b).max()) for a, b in zip(got, plain)) \
+        > 0.01
 
 
 def test_warp_plain_matches_pallas_interpret_and_oracle(jax_ref):

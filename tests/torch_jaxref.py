@@ -373,10 +373,11 @@ def ref_render(spec, world, cam, checker_parity=None, quarter_phase=None):
                 composite=np.asarray(comp))
 
 
-def ref_temporal(frames, taps, scale=3, jit=False):
+def ref_temporal(frames, taps, scale=3, jit=False, depth_reject=False):
     """temporal_upscale over a frame sequence; returns each output.  A
     frame's optional ``valid`` mask is passed on; ``jit`` compiles the
-    step once."""
+    step once.  With ``depth_reject``: ``(outputs, each frame's
+    state.depth)``."""
     import functools
 
     import jax
@@ -385,11 +386,12 @@ def ref_temporal(frames, taps, scale=3, jit=False):
     from rvgrt_tpu.upscale import temporal
 
     h, w = frames[0]["color"].shape[:2]
-    state = temporal.init_state(h, w, scale=scale)
-    step = functools.partial(temporal.temporal_upscale, warp_taps=taps)
+    state = temporal.init_state(h, w, scale=scale, depth_reject=depth_reject)
+    step = functools.partial(temporal.temporal_upscale, warp_taps=taps,
+                             depth_reject=depth_reject)
     if jit:
         step = jax.jit(step)
-    outs = []
+    outs, depths = [], []
     for fr in frames:
         valid = fr.get("valid")
         out, state = step(
@@ -397,7 +399,8 @@ def ref_temporal(frames, taps, scale=3, jit=False):
             jnp.asarray(fr["depth"]), jnp.asarray(fr["jitter"]), state,
             valid=None if valid is None else jnp.asarray(valid))
         outs.append(np.asarray(out))
-    return outs
+        depths.append(np.asarray(state.depth))
+    return (outs, depths) if depth_reject else outs
 
 
 def ref_rate_schedule(width, height, fov, poses):
@@ -483,8 +486,11 @@ def _bench_ops(spec):
     phase is traced): ``base(world, gi, cam, par, rate)`` -> (outputs,
     G-buffer) through ``_flat_trace_fn``, ``composite(color, gb, gi,
     sdf)``, ``post(out, cam, state, par, rate)`` -> expanded outputs,
-    reconstruction and the next state (the exact 4-tap warp), ``gi(gi,
-    world, frame, offset)`` -> (words, overflow)."""
+    reconstruction and the next state (the exact 4-tap warp; with
+    ``mode`` "net", "residual" or "none" ``bench.py``'s other
+    ``BENCH_UPSCALE`` posts, the flax module ``net`` static and its
+    ``params`` traced), ``gi(gi, world, frame, offset)`` -> (words,
+    overflow)."""
     import functools
     import json
 
@@ -492,6 +498,7 @@ def _bench_ops(spec):
 
     from rvgrt_tpu.gi import update
     from rvgrt_tpu.render import pipeline
+    from rvgrt_tpu.upscale import model as up_model
     from rvgrt_tpu.upscale import temporal
 
     key = json.dumps(spec, sort_keys=True, default=str)
@@ -509,10 +516,12 @@ def _bench_ops(spec):
             quarter_phase=par if rate == "quarter" else None)
 
     def composite(color, gb, gi, sdf):
-        return pipeline.gi_composite(color, gb, gi, sdf, ecfg)
+        return pipeline.gi_composite(color, gb, gi, sdf, ecfg,
+                                     return_addend=True)
 
-    @functools.partial(jax.jit, static_argnames="rate")
-    def post(out, cam, state, par, rate):
+    @functools.partial(jax.jit, static_argnames=("rate", "mode", "net"))
+    def post(out, cam, state, par, rate, mode="temporal", net=None,
+             params=None):
         valid = None
         if rate == "checker":
             def ex(a):
@@ -525,9 +534,18 @@ def _bench_ops(spec):
         if valid is not None:
             out = out._replace(color=ex(out.color), motion=ex(out.motion),
                                depth=ex(out.depth))
+        if mode == "none":
+            return out, out.color, state
+        if mode == "net":
+            hi, _ = up_model.upscale(net, params, out.color, out.motion,
+                                     out.depth, cam.jitter, state)
+            return out, hi, hi
         hi, state = temporal.temporal_upscale(
             out.color, out.motion, out.depth, cam.jitter, state, valid=valid,
             warp_taps="bilinear")
+        if mode == "residual":
+            hi = net.apply(params, out.color, out.motion, out.depth,
+                           cam.jitter, hi, state.conf)
         return out, hi, state
 
     @jax.jit
@@ -553,23 +571,50 @@ def ref_render_rates(spec, world, cam, cases):
     res = []
     for rate, par in cases:
         out, gb = ops["base"](w, w["gi"], ca, jnp.int32(par), rate=rate)
-        comp = ops["composite"](out.color, gb, w["gi"], w["sdf"])
+        comp, _ = ops["composite"](out.color, gb, w["gi"], w["sdf"])
         res.append(dict(out=_np(out._asdict()), gb=_np(gb._asdict()),
                         composite=np.asarray(comp)))
     return res
 
 
-def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale):
+def _load_net(upscaler, path):
+    """The JAX package's (net, params) of a checkpoint as ``bench.py``
+    loads it for ``upscaler``, or (None, None)."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.driver import checkpoint as ck
+    from rvgrt_tpu.upscale import model as up_model
+    from rvgrt_tpu.upscale import residual
+
+    if upscaler == "net":
+        return up_model.load_checkpoint(path)
+    if upscaler == "residual":
+        blob = ck.load_params(path)
+        return (residual.ResidualHead(features=blob["features"],
+                                      depth_layers=blob["layers"]),
+                jax.tree.map(jnp.asarray, blob["params"]))
+    return None, None
+
+
+def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale,
+                   modes=(("temporal", 1, None),)):
     """``bench.py``'s frame loop composed of the JAX package's functions,
     jitted and called in its order, over the given cameras: the
-    scheduler's rates from the poses (the first frame checkerboard), the
-    parity or quarter phase of the frame index, a GI window every
+    scheduler's rates from the poses (the first frame checkerboard; every
+    frame at full rate when the first mode is not "temporal"), the parity
+    or quarter phase of the frame index, a GI window every
     ``gi_cadence``-th frame (frame number = frame index, offset advanced
     before each window but the first), the base frame at the frame's rate,
-    the composite, the expand, the valid mask and the temporal accumulator
-    with the exact 4-tap warp.  Returns the rates, each frame's expanded
-    base outputs, hit mask and reconstruction, the GI words and the
-    summed overflow."""
+    then for each of ``modes`` - (``BENCH_UPSCALE`` mode,
+    ``BENCH_COMP_CADENCE``, checkpoint path) - ``bench.py``'s ``_post``:
+    the composite or, on a reusing frame, the carried full-resolution
+    addend re-selected at the frame's rate and phase, the expand, the
+    valid mask and the mode's upscaler (the accumulator with the exact
+    4-tap warp).  The modes share the rates, GI windows and base frames.
+    Returns the rates, each mode's frames (expanded base outputs, hit mask
+    and reconstruction; the first mode's also as ``frames``), the GI words
+    and the summed overflow."""
     import jax.numpy as jnp
 
     from rvgrt_tpu.gi import update
@@ -581,13 +626,26 @@ def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale):
     ecfg = ops["ecfg"]
     r = ecfg.render
     w = {k: jnp.asarray(v) for k, v in world.items()}
-    sched = AdaptiveRateScheduler(r.width, r.height, r.fov_degrees)
-    rates = ["checker"] + [
-        sched.pick(sched.motion_pixels(p0, f0, p1, f1))
-        for (p0, f0), (p1, f1) in zip(poses, poses[1:])]
-    state = temporal.init_state(r.height, r.width, scale=scale)
+    if modes[0][0] == "temporal":
+        sched = AdaptiveRateScheduler(r.width, r.height, r.fov_degrees)
+        rates = ["checker"] + [
+            sched.pick(sched.motion_pixels(p0, f0, p1, f1))
+            for (p0, f0), (p1, f1) in zip(poses, poses[1:])]
+    else:
+        rates = ["full"] * len(cams)
+    runs = []
+    for mode, cadence, path in modes:
+        net, params = _load_net(mode, path)
+        if mode in ("temporal", "residual"):
+            state = temporal.init_state(r.height, r.width, scale=scale)
+        else:
+            state = jnp.zeros((r.height * scale, r.width * scale, 3),
+                              jnp.float32)
+        runs.append(dict(mode=mode, cadence=cadence, net=net, params=params,
+                         state=state, frames=[],
+                         addend=jnp.zeros((r.height, r.width, 3),
+                                          jnp.float32)))
     gi, off, windows, overflow = w["gi"], 0, 0, 0
-    frames = []
     for i, cam in enumerate(cams):
         rate = rates[i]
         par = (pipeline.QUARTER_PHASE_ORDER[i & 3] if rate == "quarter"
@@ -599,14 +657,36 @@ def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale):
             overflow += int(ovf)
             windows += 1
         ca = _camera_arrays(cam)
-        out, gb = ops["base"](w, gi, ca, jnp.int32(par), rate=rate)
-        out = out._replace(color=ops["composite"](out.color, gb, gi,
-                                                  w["sdf"]))
-        out, hi, state = ops["post"](out, ca, state, jnp.int32(par),
-                                     rate=rate)
-        frames.append(dict(out=_np(out._asdict()), hit=np.asarray(gb.hit),
-                           image=np.asarray(hi)))
-    return dict(rates=rates, frames=frames, gi=np.asarray(gi),
+        base, gb = ops["base"](w, gi, ca, jnp.int32(par), rate=rate)
+        comp = add = None
+        for run in runs:
+            if run["cadence"] > 1 and i % run["cadence"] != 0:
+                a = run["addend"]
+                if rate == "checker":
+                    a = pipeline.checker_select(a, par)
+                elif rate == "quarter":
+                    a = pipeline.quarter_select(a, par)
+                col = jnp.clip(base.color + a, 0.0, 1.0)
+            else:
+                if comp is None:
+                    comp, add = ops["composite"](base.color, gb, gi,
+                                                 w["sdf"])
+                col = comp
+                if rate == "checker":
+                    run["addend"] = pipeline.checker_expand(add, par)
+                elif rate == "quarter":
+                    run["addend"] = pipeline.quarter_expand(add, par)
+                else:
+                    run["addend"] = add
+            out, hi, run["state"] = ops["post"](
+                base._replace(color=col), ca, run["state"], jnp.int32(par),
+                rate=rate, mode=run["mode"], net=run["net"],
+                params=run["params"])
+            run["frames"].append(dict(out=_np(out._asdict()),
+                                      hit=np.asarray(gb.hit),
+                                      image=np.asarray(hi)))
+    return dict(rates=rates, frames=runs[0]["frames"],
+                modes=[run["frames"] for run in runs], gi=np.asarray(gi),
                 overflow=overflow)
 
 
@@ -621,6 +701,123 @@ def ref_warp(packed, xs, ys):
     xla, _ = warp_kernels.warp_packed_bilinear_xla(*args)
     return dict(kernel=np.asarray(kern), overflow=int(ovf),
                 xla=np.asarray(xla))
+
+
+def _flax_net(kind, features, layers, dtype):
+    """A JAX ``UpscalerNet`` (``kind`` "upscaler") or ``ResidualHead``
+    ("residual") in ``dtype`` (a jnp name), with its ``apply`` jitted once a
+    configuration."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.upscale import model as up_model
+    from rvgrt_tpu.upscale import residual
+
+    key = ("net", kind, features, layers, dtype)
+    if key not in _JITTED:
+        cls = up_model.UpscalerNet if kind == "upscaler" else \
+            residual.ResidualHead
+        net = cls(features=features, depth_layers=layers,
+                  dtype=getattr(jnp, dtype))
+        _JITTED[key] = (net, jax.jit(net.apply))
+    return _JITTED[key]
+
+
+def ref_upscale_parts(x_hwc, s, c_out, history, motion):
+    """``model.depth_to_space_cf`` of ``x_hwc``, and ``warp_history`` of
+    ``history`` by ``motion`` in each of its three modes."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.upscale import model as up_model
+
+    hist, mot = jnp.asarray(history), jnp.asarray(motion)
+    return dict(
+        d2s=np.asarray(up_model.depth_to_space_cf(jnp.asarray(x_hwc), s,
+                                                  c_out)),
+        warps={m: np.asarray(up_model.warp_history(hist, mot, mode=m))
+               for m in ("bilinear", "bilinear_packed", "nearest_packed")})
+
+
+def ref_nets(cases):
+    """Each case ``dict(kind, features, layers, dtype, inputs)`` with
+    ``params`` (a flax tree of numpy arrays) or ``path`` (a checkpoint,
+    read as ``bench.py`` reads it), applied to ``inputs`` (the net's
+    arguments by name): the upscaler's (image, alpha), the head's
+    image."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.driver import checkpoint as ck
+    from rvgrt_tpu.upscale import model as up_model
+
+    res = []
+    for c in cases:
+        if "path" in c and c["kind"] == "upscaler":
+            net, params = up_model.load_checkpoint(c["path"])
+            _, apply = _flax_net("upscaler", net.features, net.depth_layers,
+                                 c["dtype"])
+        else:
+            _, apply = _flax_net(c["kind"], c["features"], c["layers"],
+                                 c["dtype"])
+            params = (ck.load_params(c["path"])["params"] if "path" in c
+                      else c["params"])
+        params = jax.tree.map(jnp.asarray, params)
+        res.append(_np(apply(params, **{k: jnp.asarray(v) for k, v in
+                                        c["inputs"].items()})))
+    return res
+
+
+def ref_fresh(height, width, inputs, history):
+    """The JAX CLI's ``--upscale fresh``: ``init_params(PRNGKey(0))`` and
+    one jitted ``upscale`` of ``inputs`` (color, motion, depth, jitter)
+    over ``history``; returns the image."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.upscale import model as up_model
+
+    net, params = up_model.init_params(jax.random.PRNGKey(0), height, width)
+    step = jax.jit(lambda p, *a: up_model.upscale(net, p, *a)[0])
+    return np.asarray(step(params, *(jnp.asarray(inputs[k]) for k in (
+        "color", "motion", "depth", "jitter")), jnp.asarray(history)))
+
+
+def ref_params_checkpoint(port_path, jax_path):
+    """Reads the port-written parameter pickle at ``port_path`` with the
+    JAX package's ``load_checkpoint``, and writes at ``jax_path`` with its
+    ``save_params`` a variant-tagged ``up-s`` tree from ``models.upscaler.
+    init`` with every leaf drawn at random (seed 1).  Returns what it read
+    (the variant's sizes and params) and what it wrote."""
+    import jax
+
+    from rvgrt_tpu.driver import checkpoint as ck
+    from rvgrt_tpu.models import upscaler
+    from rvgrt_tpu.upscale import model as up_model
+
+    net, params = up_model.load_checkpoint(port_path)
+    _, fresh = upscaler.init("up-s", jax.random.PRNGKey(1), 8, 8)
+    rng = np.random.default_rng(1)
+    written = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), fresh)
+    ck.save_params(jax_path, {"variant": "up-s", "params": written})
+    return dict(features=net.features, layers=net.depth_layers,
+                read=_np(params), written=written)
+
+
+def ref_world_checkpoint(spec, port_path, jax_path, frame_count, gi_offset):
+    """Loads the port-written world at ``port_path`` with the JAX package's
+    ``load_world`` (which derives ``sky_y`` and ``trace_table``) and saves
+    it with its ``save_world`` at ``jax_path`` with the given counters.
+    Returns the loaded world's arrays and counters."""
+    from rvgrt_tpu.driver import checkpoint as ck
+
+    ecfg = make_ecfg(_cfg(), spec)
+    world, fc, go = ck.load_world(port_path, ecfg)
+    ck.save_world(jax_path, world, ecfg, frame_count=frame_count,
+                  gi_offset=gi_offset)
+    return dict(world={k: np.asarray(getattr(world, k)) for k in (
+        "bits", "sdf", "gi", "atlas", "sky_y", "trace_table")},
+        gi_occ=world.gi_occ, frame_count=fc, gi_offset=go)
 
 
 def ref_engine(spec, steps, pose, clock):

@@ -43,6 +43,24 @@ is printed.
    world; and the CLI with
    ``--config tiny --frames 4 --upscale checkpoints/upscaler_r2.pkl``
    (3x PNGs, K1 launches == traces, no K2);
+5c. training (main paths): the residual head's trainer,
+   ``python -m rvgrt_tpu_torch.tools.train_residual`` at its documented
+   usage (``--cube 8 --low-w 128 --low-h 96 --ssaa 4 --gi``) with frames and
+   steps cut (``--frames 24 --eval-frames 12 --steps 50``, documented 72 and
+   800): the pair renders (low-res, 3x and 4 SSAA renders a frame through
+   K1 on a 256^3 world built with K3 and the traced GI init, the two
+   engines sharing it), the accumulation, the steps, the held-out
+   evaluation (head against accumulator) and the checkpoint read back bit
+   for bit; then ``python -m rvgrt_tpu_torch.upscale.train --variant up-l
+   --cube 8 --frames 36 --steps 20`` (the closed loop; 36 frames, as the
+   trainer holds out the last two 12-frame segments).  K1 launches ==
+   traces, no K2, losses finite and falling.  Not counted: one up-l
+   ``train_step`` and one residual-head step at 1280x800 -> 3840x2400
+   (median of 5 after 2 warm-ups, peak memory, the conv kernels' device
+   time beside the step's conv FLOP bound at the dense bf16 peak), and a
+   float32 step of up-s and of the head at the CPU tests' size on the card
+   against the CPU (TF32 off: losses rtol 1e-4, gradients within 1e-5 x
+   their max; bf16 losses rtol 1e-2);
 6. traced GI init (main path): ``config_stage4``'s GI init on the same
    world (stage 4's): one sun-shadow ray per GI cell through K1, at stride
    (1, 1) all 2^24 cells in one trace and at (2, 2) 2^22, each timed; K1 on
@@ -104,8 +122,8 @@ two-phase trace as a trace, so on every path K1 launches == traces.
 Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
 line sums each kernel's launches over the build, the three frame paths, the
-GI init, the post modes, the CLIs, the probe's gathers and the big worlds'
-builds, init and frames.
+GI init, the post modes, the CLIs, the two trainers' pair renders and world
+builds, the probe's gathers and the big worlds' builds, init and frames.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
@@ -1198,7 +1216,7 @@ POST_MODES = (("net", "net", 1, "upscaler.pkl"),
 BF16_FLOPS_PER_S = 989e12
 #: substrings that name a convolution's own kernels (cuDNN's, CUTLASS's)
 CONV_MARKS = ("conv", "xmma", "gemm", "cutlass", "cudnn", "fprop",
-              "implicit")
+              "implicit", "dgrad", "wgrad")
 
 
 def conv_flops(net, height: int, width: int) -> float:
@@ -1277,15 +1295,18 @@ def profile_net(mode: str, net, loop, result, cam, dev) -> dict:
     inputs: for the upscaler the history warp, the conv stack and the
     display-resolution tail (sigmoid, bilinear anchor, blend); for the
     residual head the whole head.  Each part's CUDA-event time (host
-    included) and its profile."""
+    included) and its profile, every part as served: no autograd graph."""
+    import torch
+
     from rvgrt_tpu_torch.upscale import model, residual
     from rvgrt_tpu_torch.utils.timer import timed_ms
 
     o = result.out
     if mode == "net":
         hist = loop.state
-        warped = model.warp_history(hist, o.motion)
-        up = net.stack(o.color, o.motion, o.depth, cam.jitter, warped)
+        with torch.no_grad():
+            warped = model.warp_history(hist, o.motion)
+            up = net.stack(o.color, o.motion, o.depth, cam.jitter, warped)
         parts = {
             "warp": lambda: model.warp_history(hist, o.motion),
             "conv_stack": lambda: net.stack(o.color, o.motion, o.depth,
@@ -1298,6 +1319,7 @@ def profile_net(mode: str, net, loop, result, cam, dev) -> dict:
         parts = {"head": lambda: residual.apply(
             net, o.color, o.motion, o.depth, cam.jitter, st.history,
             st.conf)}
+    parts = {k: torch.no_grad()(fn) for k, fn in parts.items()}
     rep = profile_parts(parts)
     for k, fn in parts.items():
         rep[k]["event_ms"] = timed_ms(lambda _, fn=fn: fn(), dev)
@@ -1442,6 +1464,358 @@ def phase_cli_net(dev, counts: dict, frames: int = 4) -> dict:
     assert c["K1"] == st["traces"] > 0 and c["K2"] == 0, (c, st)
     return dict(stats, png_size=size, launches=c, traces=st["traces"],
                 frame_ms_median=statistics.median(stats["frame_ms"][1:]))
+
+
+#: ``tools/train_residual.py`` at its documented usage (``--cube 8
+#: --low-w 128 --low-h 96 --ssaa 4 --gi``), frames and steps cut to fit the
+#: run; the documented run is ``--frames 72 --steps 800``
+TRAIN_RESIDUAL_ARGS = ["--cube", "8", "--low-w", "128", "--low-h", "96",
+                       "--ssaa", "4", "--gi", "--frames", "24",
+                       "--eval-frames", "12", "--steps", "50"]
+TRAIN_RESIDUAL_DOCUMENTED = "--frames 72 --eval-frames 24 --steps 800"
+#: ``python -m rvgrt_tpu_torch.upscale.train`` at the up-l width that
+#: ``checkpoints/upscaler.pkl`` serves; 36 frames, as the trainer holds out
+#: the last two 12-frame segments and needs one to train on
+TRAIN_UPSCALER_ARGS = ["--variant", "up-l", "--cube", "8", "--frames", "36",
+                       "--steps", "20"]
+#: the up-s / head float32 step of the GPU-against-CPU check: the CPU
+#: tests' size (tests/test_torch_train.py)
+TRAIN_REF_H, TRAIN_REF_W = 16, 24
+TRAIN_LR = 1e-3
+
+
+def _losses_fall(losses: list) -> bool:
+    k = max(1, min(10, len(losses) // 3))
+    return statistics.fmean(losses[-k:]) < statistics.fmean(losses[:k])
+
+
+def phase_train_residual(dev, counts: dict, out_dir: str) -> dict:
+    """The residual head's trainer as its usage runs it, a main path
+    (``counts["train_residual"]``): ``tools/train_residual.py`` with
+    ``TRAIN_RESIDUAL_ARGS``: the pairs (two 256^3 world builds with the
+    traced GI init; low-res, 3x and 4 SSAA renders a frame, GI on), the
+    accumulation, 50 steps, the held-out evaluation, the checkpoint.  K1
+    launches == traces over the renders, no K2 (the accumulator's default
+    taps), the losses finite and falling, and the written checkpoint read
+    back by ``residual.load_checkpoint`` equal to the trained module bit
+    for bit."""
+    import os
+
+    import torch
+
+    from rvgrt_tpu_torch.tools import train_residual
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.upscale import residual
+
+    path = os.path.join(out_dir, "residual_head.pkl")
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
+    reset_counts()
+    rep = train_residual.main(TRAIN_RESIDUAL_ARGS + ["--out", path])
+    torch.cuda.synchronize(dev)
+    c = counts["train_residual"] = read_counts()
+    st = wavefront.read_stats()
+    net = rep.pop("net")
+    losses = rep.pop("losses")
+    assert c["K1"] == st["traces"] > 0 and c["K3"] > 0 and c["K2"] == 0, \
+        (c, st)
+    assert all(map(math.isfinite, losses)), losses
+    assert _losses_fall(losses), losses
+    back = residual.load_checkpoint(path, device=dev)
+    for k, v in net.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+    step_ms = rep.pop("step_ms")
+    rep.update(args=" ".join(TRAIN_RESIDUAL_ARGS),
+               cut=f"--frames 24 --eval-frames 12 --steps 50 against the "
+                   f"documented {TRAIN_RESIDUAL_DOCUMENTED}",
+               loss_first=losses[0], loss_last=losses[-1],
+               loss_first10=statistics.fmean(losses[:10]),
+               loss_last10=statistics.fmean(losses[-10:]),
+               step_ms_warmup=step_ms[:2], launches=c,
+               traces=st["traces"], resident_before_gb=resident_gb,
+               checkpoint_bit_exact=True)
+    return rep
+
+
+def phase_train_upscaler(dev, counts: dict, out_dir: str) -> dict:
+    """The upscaler's closed-loop trainer, a main path
+    (``counts["train_upscaler"]``): ``python -m rvgrt_tpu_torch.upscale.
+    train`` with ``TRAIN_UPSCALER_ARGS`` (up-l): 36 pairs, 20 steps on the
+    first segment, the evaluation of the two held-out segments, the
+    checkpoint read back by ``model.load_checkpoint`` bit for bit."""
+    import os
+
+    import torch
+
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.upscale import model
+    from rvgrt_tpu_torch.upscale import train
+
+    path = os.path.join(out_dir, "upscaler.pkl")
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
+    reset_counts()
+    rep = train.main(TRAIN_UPSCALER_ARGS + ["--out", path])
+    torch.cuda.synchronize(dev)
+    c = counts["train_upscaler"] = read_counts()
+    st = wavefront.read_stats()
+    net = rep.pop("net")
+    assert c["K1"] == st["traces"] > 0 and c["K3"] > 0 and c["K2"] == 0, \
+        (c, st)
+    losses = rep["losses"]
+    assert all(map(math.isfinite, losses)), losses
+    assert _losses_fall(losses), losses
+    back = model.load_checkpoint(path, device=dev)
+    assert (back.features, back.depth_layers) == (64, 4)
+    for k, v in net.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+    for e in rep["eval"]:
+        assert all(map(math.isfinite, e.values())), e
+    rep.update(args=" ".join(TRAIN_UPSCALER_ARGS), launches=c,
+               traces=st["traces"], loss_first=losses[0],
+               loss_last=losses[-1],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               resident_before_gb=resident_gb, checkpoint_bit_exact=True)
+    return rep
+
+
+def train_flop_bound(net, height: int, width: int) -> dict:
+    """A training step's conv FLOP at a ``height x width`` low-res frame:
+    the forward, the weight gradients (as many) and the data gradients of
+    every conv but the first (the input needs none); and the least time
+    at the dense bf16 peak."""
+    from rvgrt_tpu_torch.upscale import model
+
+    convs = [m for m in net.modules() if isinstance(m, model._Conv)]
+    fwd = conv_flops(net, height, width)
+    first = 2.0 * 9 * height * width * (convs[0].weight.shape[0]
+                                        * convs[0].weight.shape[1])
+    total = 2 * fwd + (fwd - first)
+    return dict(forward_gflop=fwd / 1e9, weight_grad_gflop=fwd / 1e9,
+                data_grad_gflop=(fwd - first) / 1e9, gflop=total / 1e9,
+                bound_ms=total / BF16_FLOPS_PER_S * 1e3)
+
+
+def _train_sample(kind: str, h: int, w: int, seed: int, dev):
+    """A synthetic training sample on ``dev`` made from a numpy seed, with
+    flat blocks at exactly 0 and 1 (ties of the clip and of the
+    gradient-L1)."""
+    import numpy as np
+    import torch
+
+    from rvgrt_tpu_torch.upscale import residual, train
+
+    rng = np.random.default_rng(seed)
+
+    def blocks(a):
+        a = a.copy()
+        hh, ww = a.shape[:2]
+        a[:hh // 3, :ww // 3] = 1.0
+        a[hh // 3:hh // 2, :ww // 3] = 0.0
+        return a
+
+    d = dict(color=blocks(rng.random((h, w, 3), np.float32)),
+             motion=rng.normal(0.0, 0.01, (h, w, 2)).astype(np.float32),
+             depth=rng.random((h, w), np.float32),
+             jitter=np.array([0.013, -0.021], np.float32),
+             target=blocks(rng.random((3 * h, 3 * w, 3), np.float32)))
+    if kind == "upscaler":
+        d["history"] = blocks(rng.random((3 * h, 3 * w, 3), np.float32))
+        cls = train.Sample
+    else:
+        d["acc_out"] = blocks(rng.uniform(-0.2, 1.2, (3 * h, 3 * w, 3))
+                              .astype(np.float32))
+        d["acc_conf"] = rng.random((3 * h, 3 * w), np.float32) * 12
+        cls = residual.ResSample
+    return cls(**{k: torch.from_numpy(d[k]).to(dev) for k in cls._fields})
+
+
+def phase_train_step_1280(dev) -> dict:
+    """One training step at bench.py's operating point, 1280x800 ->
+    3840x2400 (the nets are fully convolutional): up-l's closed-loop
+    ``train_step`` and the residual head's (32x3), bf16, from a fresh
+    net (``models.upscaler.init`` / ``residual.init_params``, seed 0) on
+    synthetic inputs.  Each: the median of 5 steps after 2 warm-ups (CUDA
+    events around each step, host included), peak memory, and one more
+    step under ``torch.profiler`` - its device busy ms and its conv
+    kernels' (``CONV_MARKS``: forward, data and weight gradients) beside
+    the FLOP bound of the step's convs (``train_flop_bound``)."""
+    import torch
+
+    from rvgrt_tpu_torch.models import upscaler as up_family
+    from rvgrt_tpu_torch.upscale import residual, train
+    from rvgrt_tpu_torch.utils.timer import Timer
+
+    out = {}
+    for name in ("up-l", "residual_head"):
+        g = torch.Generator().manual_seed(0)
+        if name == "up-l":
+            net = up_family.init("up-l", g, HEIGHT, WIDTH, device=dev)
+            s = _train_sample("upscaler", HEIGHT, WIDTH, 1, dev)
+            step = train.train_step
+        else:
+            net = residual.init_params(HEIGHT, WIDTH, generator=g,
+                                       device=dev)
+            s = _train_sample("residual", HEIGHT, WIDTH, 2, dev)
+            step = residual.train_step
+        opt = train.make_optimizer(TRAIN_LR)
+        box = [opt.init(list(net.parameters()))]
+
+        def one():
+            box[0], loss, _ = step(net, opt, box[0], s)
+            return loss
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident_gb = torch.cuda.memory_allocated(dev) / 1e9
+        ms, losses = [], []
+        for _ in range(2 + 5):
+            with Timer(name, verbose=False, device=dev) as t:
+                losses.append(one())
+            ms.append(t.elapsed_ms)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        prof = profile_parts({"step": one})["step"]
+        bound = train_flop_bound(net, HEIGHT, WIDTH)
+        losses = [float(v) for v in losses]
+        assert all(map(math.isfinite, losses)), losses
+        out[name] = dict(
+            shape=f"{WIDTH}x{HEIGHT} -> {3 * WIDTH}x{3 * HEIGHT}",
+            ms_median=statistics.median(ms[2:]), ms_all=ms,
+            peak_mem_gb=peak, resident_before_gb=resident_gb,
+            losses=losses, profile=prof,
+            conv_ms=prof["conv_ms"], flop_bound=bound,
+            conv_share_of_bound=(bound["bound_ms"] / prof["conv_ms"]
+                                 if prof["conv_ms"] else None),
+            step_share_of_bound=bound["bound_ms"] / statistics.median(
+                ms[2:]))
+        log(f"train step {name} at {WIDTH}x{HEIGHT}: median "
+            f"{out[name]['ms_median']:.2f} ms, conv kernels "
+            f"{prof['conv_ms']:.3f} ms against {bound['bound_ms']:.3f} ms "
+            f"({bound['gflop']:.1f} GFLOP), peak {peak:.2f} GB")
+        del net, s, box
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ref_tree(cin: int, features: int, layers: int, cout: int, seed: int,
+              zero_shuffle: bool) -> dict:
+    """A flax tree made from a numpy seed (tests/test_torch_train.py's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for i in range(layers + 1):
+        ci = cin if i == 0 else features
+        co = cout if i == layers else features
+        k = rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci)
+        b = 0.1 * rng.standard_normal(co)
+        if i == layers and zero_shuffle:
+            k, b = np.zeros_like(k), np.zeros_like(b)
+        tree["shuffle" if i == layers else f"feat{i}"] = dict(
+            kernel=k.astype(np.float32), bias=b.astype(np.float32))
+    return {"params": tree}
+
+
+def phase_train_reference(dev) -> dict:
+    """One float32 training step on the card and on the CPU from the same
+    weights and inputs, at the CPU tests' size: up-s with random weights,
+    and the residual head fresh (zero shuffle conv: its output is the
+    clipped accumulator to the bit on both devices, so the inputs' ties at
+    0 and 1 and the target's are real on both).  TF32 off for the
+    check.  The losses within rtol 1e-4, every gradient within 1e-5 x its
+    tensor's max |g| (tests/test_torch_train.py's float32 gate), the
+    parameters after the step within 1e-3 x lr wherever |g| > 1e-6; and
+    the bf16 nets' losses within rtol 1e-2."""
+    import numpy as np
+    import torch
+
+    from rvgrt_tpu_torch.upscale import model, residual, train
+
+    cpu = torch.device("cpu")
+    h, w = TRAIN_REF_H, TRAIN_REF_W
+    cases = {
+        "up-s": ("upscaler", _ref_tree(model.IN_CHANNELS, 16, 2, 36, 3,
+                                       False)),
+        "residual_head": ("residual", _ref_tree(residual.IN_CHANNELS, 32,
+                                                3, 27, 2, True))}
+    out = {}
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, (kind, tree) in cases.items():
+            res = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                got = []
+                for d in (cpu, dev):
+                    net = (model.UpscalerNet(16, 2, dtype=dtype)
+                           if kind == "upscaler"
+                           else residual.ResidualHead(dtype=dtype))
+                    net.load_state_dict(model.params_from_flax(tree))
+                    net = net.to(d)
+                    s = _train_sample(kind, h, w, 7, d)
+                    fn = (train.loss_fn if kind == "upscaler"
+                          else residual.loss_fn)
+                    loss, _ = fn(net, s)
+                    grads = torch.autograd.grad(loss,
+                                                list(net.parameters()))
+                    opt = train.make_optimizer(TRAIN_LR)
+                    st = opt.init(list(net.parameters()))
+                    step = (train.train_step if kind == "upscaler"
+                            else residual.train_step)
+                    _, loss2, _ = step(net, opt, st, s)
+                    got.append(dict(
+                        loss=float(loss.detach()), step_loss=float(loss2),
+                        grads={n: g.cpu() for (n, _), g in zip(
+                            net.named_parameters(), grads)},
+                        params={n: p.detach().cpu()
+                                for n, p in net.named_parameters()}))
+                a, b = got
+                if dtype == torch.bfloat16:
+                    assert math.isclose(b["loss"], a["loss"], rel_tol=1e-2), \
+                        (name, a["loss"], b["loss"])
+                    res["bf16_loss"] = (a["loss"], b["loss"])
+                    continue
+                assert math.isclose(b["loss"], a["loss"], rel_tol=1e-4), \
+                    (name, a["loss"], b["loss"])
+                worst = 0.0
+                for k, ga in a["grads"].items():
+                    gb = b["grads"][k]
+                    scale = float(ga.abs().max())
+                    err = float((ga - gb).abs().max())
+                    assert err <= 1e-5 * scale, (name, k, err, scale)
+                    if scale:
+                        worst = max(worst, err / scale)
+                    mask = ga.abs() > 1e-6
+                    dp = (a["params"][k] - b["params"][k]).abs()[mask]
+                    assert dp.numel() == 0 or \
+                        float(dp.max()) <= 1e-3 * TRAIN_LR, (name, k)
+                res.update(f32_loss=(a["loss"], b["loss"]),
+                           f32_grad_max_rel_err=worst)
+            out[name] = res
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    log(f"train GPU against CPU: {out}")
+    return out
+
+
+def phase_train(dev, counts: dict) -> dict:
+    """Phase 5c, the training path: ``phase_train_residual`` and
+    ``phase_train_upscaler`` (main paths, their checkpoints in a temporary
+    directory), ``phase_train_step_1280`` and ``phase_train_reference``
+    (not counted)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        rep = {"train_residual": phase_train_residual(dev, counts, d)}
+        log(f"train_residual: {rep['train_residual']}")
+        rep["train_upscaler"] = phase_train_upscaler(dev, counts, d)
+        log(f"train_upscaler: {rep['train_upscaler']}")
+    rep["step_1280x800"] = phase_train_step_1280(dev)
+    rep["gpu_vs_cpu"] = phase_train_reference(dev)
+    return rep
 
 
 def phase_cli(dev, config: str, frames: int, counts: dict) -> tuple:
@@ -1900,6 +2274,11 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     log(f"CLI with the learned upscaler: {report['cli_net']}")
     lap("cli_net")
 
+    # ---- main paths: the training path (the residual head's trainer and
+    # the upscaler's closed loop), a step at 1280x800, GPU against CPU ----
+    report["train"] = phase_train(dev, counts)
+    lap("train")
+
     # ---- main path: the traced GI init, 2^24 lanes in one trace ----
     report["gi_init"] = phase_gi_init(eng, dev, counts)
     report["gi_init"]["heightfield_init_s"] = \
@@ -2060,6 +2439,7 @@ def main(argv=None) -> int:
         "respite_cost", "probe", "phase_wall_s", "wall_s")}), flush=True)
     print(json.dumps({k: report[k] for k in (
         "post_modes", "world_checkpoint", "cli_net")}), flush=True)
+    print(json.dumps({"train": report["train"]}), flush=True)
     for n in worlds:
         print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)

@@ -174,16 +174,20 @@ def gi_composite_step(color, gb, gi, sdf, ecfg: EngineConfig):
 
 
 class Engine:
-    """Stateful convenience wrapper: world + character + frame loop."""
+    """Stateful convenience wrapper: world + character + frame loop.
+    ``world``: an existing world to share (the object itself, so that each
+    engine's GI update writes the one grid) in place of building one."""
 
     def __init__(self, ecfg: EngineConfig, include_gi: bool = True,
                  verbose: bool = True, device=None,
-                 phase_times: dict | None = None):
+                 phase_times: dict | None = None,
+                 world: World | None = None):
         self.device = resolve_device(device)
         self.ecfg = ecfg
         self.include_gi = include_gi
-        self.world = build_world(ecfg, verbose=verbose, init_gi=include_gi,
-                                 phase_times=phase_times, device=self.device)
+        self.world = world if world is not None else build_world(
+            ecfg, verbose=verbose, init_gi=include_gi,
+            phase_times=phase_times, device=self.device)
         self.character = Character(
             display_width=ecfg.render.display_width,
             display_height=ecfg.render.display_height,

@@ -187,6 +187,13 @@ def _linear_taps(m: int, n: int, device):
     return taps[0], taps[1], ws[0], ws[1]
 
 
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)`` with its gradient: ``min(max(x, 0), 1)``,
+    whose gradient at exactly 0 or 1 is 0.5 (``torch.clamp`` gives 1
+    there).  The values are ``torch.clamp``'s."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def _resize_bilinear_cf(cf: torch.Tensor, s: int) -> torch.Tensor:
     """(c, h, w) -> (c, s*h, s*w): ``jax.image.resize(.., "bilinear")`` of
     each channel.  Resize contracts its weight matrices with the image in
@@ -206,13 +213,13 @@ class _Conv(nn.Module):
     """flax's ``nn.Conv(cout, (3, 3), dtype=...)``, padding SAME: the
     weight (OIHW) and bias kept in float32 as flax keeps its params, and
     applied in ``dtype`` - the conv without a bias, then the bias added in
-    ``dtype``.  Serving only: no gradients are kept."""
+    ``dtype``.  Trainable (``upscale/train.py``); the serving entry points
+    run under ``torch.no_grad()``."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(torch.empty(cout), requires_grad=False)
+        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+        self.bias = nn.Parameter(torch.empty(cout))
 
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
         y = F.conv2d(x, self.weight.to(dtype), None, padding=1)
@@ -277,11 +284,10 @@ class UpscalerNet(_ConvStack):
         rgb_cf = up[:3].to(_F32)
         alpha = torch.sigmoid(up[3].to(_F32))[None]  # (1, 3h, 3w)
         base_cf = _resize_bilinear_cf(color.permute(2, 0, 1), SCALE)
-        current_cf = torch.clamp(base_cf + rgb_cf, 0.0, 1.0)
+        current_cf = clip01(base_cf + rgb_cf)
         wh_cf = warped_history.permute(2, 0, 1)
         out_cf = alpha * wh_cf.to(_F32) + (1.0 - alpha) * current_cf
-        return (torch.clamp(out_cf, 0.0, 1.0).permute(1, 2, 0).contiguous(),
-                alpha[0])
+        return clip01(out_cf).permute(1, 2, 0).contiguous(), alpha[0]
 
     def forward(self, color, motion, depth, jitter, warped_history):
         up = self.stack(color, motion, depth, jitter, warped_history)
@@ -299,6 +305,7 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
                                     generator=generator)
 
 
+@torch.no_grad()
 def init_stack(net: _ConvStack, generator: torch.Generator | None):
     """flax's initialisation of a conv stack, on the CPU from
     ``generator`` (seed 0 when None): lecun-normal feature kernels, zero
@@ -325,7 +332,8 @@ def init_params(height: int, width: int, features: int = 32,
     del height, width
     net = UpscalerNet(features=features, depth_layers=depth_layers)
     init_stack(net, generator)
-    net.shuffle.bias[3::C_OUT] = -3.0
+    with torch.no_grad():
+        net.shuffle.bias[3::C_OUT] = -3.0
     return net.to(resolve_device(device))
 
 

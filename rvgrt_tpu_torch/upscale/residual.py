@@ -1,4 +1,4 @@
-"""Learned residual head on top of the temporal accumulator: its serving half.
+"""Learned residual head on top of the temporal accumulator.
 
 The port of ``rvgrt_tpu/upscale/residual.py``.  Standalone conv nets top
 out at bilinear level while the analytic temporal accumulator
@@ -8,22 +8,24 @@ accumulator's output and confidence and the current frame's inputs, and
 predicts a per-pixel correction.  Its starting output is exactly the
 accumulator, and it does not feed back into the accumulator's state: the
 recurrence stays analytic and the head is a pure post-pass
-(``bench.py``'s ``BENCH_UPSCALE=residual``).
+(``bench.py``'s ``BENCH_UPSCALE=residual``), so training is plain
+supervised regression (no closed-loop rollout).
 
-The convs, the bf16 rounding and the channel orders are ``model.py``'s.
-Training (``accumulate_samples``, ``loss_fn``, ``train_step``,
-``evaluate``) is not ported.
+The convs, the bf16 rounding and the channel orders are ``model.py``'s;
+the loss, the step and the optimizer are ``train.py``'s.  The trainer is
+``tools/train_residual.py``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import torch
 
 from rvgrt_tpu_torch.core.vecmath import f32
 from rvgrt_tpu_torch.upscale import model as up_model
 from rvgrt_tpu_torch.upscale import temporal as up_temporal
+from rvgrt_tpu_torch.upscale import train as up_train
 from rvgrt_tpu_torch.utils.device import resolve_device
 
 _F32 = torch.float32
@@ -65,18 +67,19 @@ class ResidualHead(up_model._ConvStack):
         res_cf = self.logits(up_model._net_input(
             color, motion, depth, jitter, extra, self.dtype)).to(_F32)
         out_cf = acc_cf + res_cf
-        return torch.clamp(out_cf, 0.0, 1.0).permute(1, 2, 0).contiguous()
+        return up_model.clip01(out_cf).permute(1, 2, 0).contiguous()
 
 
 def init_params(height: int, width: int, features: int = 32,
                 depth_layers: int = 3,
                 generator: torch.Generator | None = None,
-                device=None) -> ResidualHead:
+                device=None, dtype=torch.bfloat16) -> ResidualHead:
     """A fresh head (``model.init_stack``: lecun-normal feature kernels
     from ``generator``, zero biases, a zero shuffle conv): its output is
     exactly the accumulator's.  The low-res size is JAX's signature."""
     del height, width
-    net = ResidualHead(features=features, depth_layers=depth_layers)
+    net = ResidualHead(features=features, depth_layers=depth_layers,
+                       dtype=dtype)
     up_model.init_stack(net, generator)
     return net.to(resolve_device(device))
 
@@ -100,3 +103,50 @@ def load_checkpoint(path: str, device=None) -> ResidualHead:
                        depth_layers=blob["layers"])
     net.load_state_dict(up_model.params_from_flax(blob["params"]))
     return net.to(resolve_device(device))
+
+
+def accumulate_samples(samples, valid=None) -> Iterator[ResSample]:
+    """Run the analytic accumulator (``temporal_upscale`` with its
+    defaults) over an ordered segment of ``train.Sample``s, from a zero
+    state (the segment's start), and yield the head's training samples."""
+    state = None
+    for s in samples:
+        if state is None:
+            state = up_temporal.init_state(s.color.shape[0], s.color.shape[1],
+                                           device=s.color.device)
+        out, state = up_temporal.temporal_upscale(
+            s.color, s.motion, s.depth, s.jitter, state, valid=valid)
+        yield ResSample(color=s.color, motion=s.motion, depth=s.depth,
+                        jitter=s.jitter, acc_out=out, acc_conf=state.conf,
+                        target=s.target)
+
+
+def loss_fn(net: ResidualHead, s: ResSample):
+    """L1 + 0.5 x gradient L1 of the head's output against the target,
+    with JAX's gradients at ties (``train.abs_jax``); returns (loss,
+    output)."""
+    out = net(s.color, s.motion, s.depth, s.jitter, s.acc_out, s.acc_conf)
+    return up_train.l1_grad_loss(out, s.target), out
+
+
+def train_step(net: ResidualHead, opt, opt_state, s: ResSample):
+    """One update of ``net``'s parameters in place; returns (opt_state,
+    loss, output), the output detached."""
+    return up_train.step(net, opt, opt_state, lambda: loss_fn(net, s))
+
+
+psnr = up_train.psnr
+
+
+@torch.no_grad()
+def evaluate(net: ResidualHead, res_samples) -> dict:
+    """Held-out PSNR of the head's output against the accumulator it
+    rides on."""
+    head_p, acc_p = [], []
+    for s in res_samples:
+        out = net(s.color, s.motion, s.depth, s.jitter, s.acc_out,
+                  s.acc_conf)
+        head_p.append(psnr(out, s.target))
+        acc_p.append(psnr(s.acc_out, s.target))
+    return {"psnr_head": sum(head_p) / len(head_p),
+            "psnr_accumulator": sum(acc_p) / len(acc_p)}

@@ -39,8 +39,9 @@ FRAME_COUNT, GI_OFFSET = 37, 4096
 def _random_net():
     net = upscaler.build("up-m")
     g = torch.Generator().manual_seed(3)
-    for p in net.parameters():
-        p.copy_(torch.randn(p.shape, generator=g))
+    with torch.no_grad():  # the parameters are trainable
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
     return net
 
 
@@ -87,8 +88,9 @@ def test_jax_params_load_in_port(case):
     for layer, p in case["params"]["written"]["params"].items():
         conv = getattr(net, layer)
         np.testing.assert_array_equal(
-            conv.weight.numpy(), np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-        np.testing.assert_array_equal(conv.bias.numpy(), p["bias"])
+            conv.weight.detach().numpy(),
+            np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        np.testing.assert_array_equal(conv.bias.detach().numpy(), p["bias"])
 
 
 def test_params_pickle_needs_only_numpy(case):

@@ -150,7 +150,7 @@ def test_cli_runs_the_learned_upscaler(upscale, tmp_path):
         net = up_model.init_params(96, 160,
                                    generator=torch.Generator().manual_seed(0),
                                    device="cpu")
-        assert float(net.shuffle.weight.abs().max()) == 0.0
+        assert float(net.shuffle.weight.detach().abs().max()) == 0.0
     else:
         net = up_model.load_checkpoint(str(ref.REPO / upscale), device="cpu")
         assert (net.features, net.depth_layers) == (32, 3)

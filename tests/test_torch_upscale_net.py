@@ -206,7 +206,7 @@ def _port_net(name: str, dtype) -> model.UpscalerNet:
     f, n = SPECS[name]
     net = model.UpscalerNet(features=f, depth_layers=n, dtype=dtype)
     net.load_state_dict(model.params_from_flax(_upscaler_tree(name)))
-    return net
+    return net.requires_grad_(False)  # applied as served: no graph
 
 
 @pytest.mark.parametrize("name", list(SPECS))

@@ -843,6 +843,187 @@ def ref_engine(spec, steps, pose, clock):
                 gi=np.asarray(eng.world.gi))
 
 
+def _jax_net(kind, features, layers, dtype):
+    """A JAX ``UpscalerNet`` (``kind`` "upscaler") or ``ResidualHead``
+    ("residual") in ``dtype`` (a jnp name), and its training module
+    (``train`` or ``residual``)."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.upscale import model as up_model
+    from rvgrt_tpu.upscale import residual, train
+
+    if kind == "upscaler":
+        return (up_model.UpscalerNet(features=features, depth_layers=layers,
+                                     dtype=getattr(jnp, dtype)), train)
+    return (residual.ResidualHead(features=features, depth_layers=layers,
+                                  dtype=getattr(jnp, dtype)), residual)
+
+
+def _jax_sample(kind, d):
+    """A ``train.Sample`` ("upscaler") or ``residual.ResSample`` of the
+    numpy arrays in ``d``."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.upscale import residual, train
+
+    cls = train.Sample if kind == "upscaler" else residual.ResSample
+    return cls(**{k: jnp.asarray(d[k]) for k in cls._fields})
+
+
+def ref_train_grads(cases):
+    """Each case ``dict(kind, features, layers, dtype, params, sample)``:
+    the JAX trainer's ``loss_fn`` under ``jax.value_and_grad`` (jitted
+    once a configuration): the loss, the output and the gradient tree."""
+    import jax
+
+    res = []
+    for c in cases:
+        net, mod = _jax_net(c["kind"], c["features"], c["layers"],
+                            c["dtype"])
+        key = ("grads", net)
+        if key not in _JITTED:
+            _JITTED[key] = jax.jit(jax.value_and_grad(
+                lambda p, s, net=net, mod=mod: mod.loss_fn(p, net, s),
+                has_aux=True))
+        (loss, out), g = _JITTED[key](c["params"],
+                                      _jax_sample(c["kind"], c["sample"]))
+        res.append(dict(loss=float(loss), out=np.asarray(out), grads=_np(g)))
+    return res
+
+
+def ref_optimizer(params, grads, lr, decay_steps):
+    """``train.make_optimizer(lr, decay_steps)``: the schedule at counts
+    0 .. decay_steps + 2 (``optax.cosine_decay_schedule(lr, decay_steps,
+    alpha=0.03)``, as ``make_optimizer`` builds it), and the parameters
+    after each of the updates with ``grads`` (a list of trees like
+    ``params``), each update and its ``apply_updates`` jitted."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from rvgrt_tpu.upscale import train
+
+    opt = train.make_optimizer(lr, decay_steps=decay_steps)
+    sched = [] if not decay_steps else [
+        np.float32(optax.cosine_decay_schedule(lr, decay_steps, alpha=0.03)(
+            jnp.int32(c))) for c in range(decay_steps + 3)]
+
+    @jax.jit
+    def upd(g, st, p):
+        u, st = opt.update(g, st, p)
+        return optax.apply_updates(p, u), st
+
+    st = opt.init(params)
+    out = []
+    for g in grads:
+        params, st = upd(g, st, params)
+        out.append(_np(params))
+    return dict(schedule=sched, params=out)
+
+
+def ref_closed_loop(kind, features, params, segments, steps, lr, seed,
+                    out_path):
+    """The JAX trainers' loops, f32, from ``params`` over ``segments``
+    (lists of sample dicts) with ``rng=np.random.default_rng(seed)`` and
+    ``make_optimizer(lr, decay_steps=steps)``: for "upscaler"
+    ``train.train_closed_loop``; for "residual" ``scripts/
+    train_residual.py``'s loop (a random sample of the flattened segments
+    a step, ``residual.train_step``).  Returns the losses of ``steps``
+    steps, the parameters after one step and the first step's gradient;
+    writes the final parameters at ``out_path`` as the JAX trainer writes
+    them (``{"variant": "up-s", ...}`` / ``{"kind": "residual_head",
+    ...}``)."""
+    import jax
+
+    from rvgrt_tpu.driver import checkpoint as ck
+    from rvgrt_tpu.upscale import residual, train
+
+    layers = 2 if kind == "upscaler" else 3
+    net, mod = _jax_net(kind, features, layers, "float32")
+    segs = [[_jax_sample(kind, s) for s in seg] for seg in segments]
+    opt = train.make_optimizer(lr, decay_steps=steps)
+
+    def run(n):
+        p = jax.tree.map(np.asarray, params)
+        st = opt.init(p)
+        rng = np.random.default_rng(seed)
+        if kind == "upscaler":
+            p, st, losses = train.train_closed_loop(
+                net, p, opt, st, segs, n, rng=rng, verbose=False)
+            return p, losses
+        flat = [s for seg in segs for s in seg]
+        losses = []
+        for _ in range(n):
+            s = flat[rng.integers(len(flat))]
+            p, st, loss, _ = residual.train_step(p, st, net, opt, s)
+            losses.append(float(loss))
+        return p, losses
+
+    rng = np.random.default_rng(seed)
+    if kind == "upscaler":
+        seg = segs[rng.integers(len(segs))]
+        s0 = seg[0]._replace(history=jax.numpy.zeros_like(seg[0].history))
+    else:
+        flat = [s for seg in segs for s in seg]
+        s0 = flat[rng.integers(len(flat))]
+    g0 = jax.grad(lambda p: mod.loss_fn(p, net, s0)[0])(params)
+    p1, _ = run(1)
+    final, losses = run(steps)
+    blob = ({"variant": "up-s", "params": jax.device_get(final)}
+            if kind == "upscaler" else
+            {"kind": "residual_head", "features": features, "layers": layers,
+             "params": jax.device_get(final)})
+    ck.save_params(out_path, blob)
+    return dict(losses=losses, params1=_np(p1), grads0=_np(g0),
+                final=_np(final))
+
+
+def ref_accumulate(samples):
+    """``residual.accumulate_samples`` over ``samples`` (dicts of
+    ``train.Sample`` fields): each accumulator output and confidence."""
+    from rvgrt_tpu.upscale import residual
+
+    segs = [_jax_sample("upscaler", s) for s in samples]
+    return [dict(acc_out=np.asarray(r.acc_out),
+                 acc_conf=np.asarray(r.acc_conf))
+            for r in residual.accumulate_samples(segs)]
+
+
+def ref_evaluate(upscaler, head):
+    """The two trainers' ``evaluate``: ``upscaler`` = dict(features,
+    layers, params, samples) through ``train.evaluate`` (closed loop), and
+    ``head`` = dict(features, layers, params, samples) through
+    ``residual.evaluate``, both nets in float32."""
+    import jax
+
+    from rvgrt_tpu.upscale import residual, train
+
+    unet, _ = _jax_net("upscaler", upscaler["features"], upscaler["layers"],
+                       "float32")
+    hnet, _ = _jax_net("residual", head["features"], head["layers"],
+                       "float32")
+    to_j = jax.tree.map(np.asarray, upscaler["params"])
+    return dict(
+        upscaler=train.evaluate(unet, to_j, [_jax_sample("upscaler", s)
+                                             for s in upscaler["samples"]]),
+        head=residual.evaluate(hnet, head["params"],
+                               [_jax_sample("residual", s)
+                                for s in head["samples"]]))
+
+
+def ref_render_pairs(spec, n_frames, low_w, low_h, clock, **kw):
+    """``train.render_pair_dataset(ecfg, n_frames, low_w, low_h, **kw)``
+    with the wall clock pinned at ``clock``: each sample's arrays."""
+    import time
+
+    time.time = lambda: clock
+    from rvgrt_tpu.upscale import train
+
+    ecfg = make_ecfg(_cfg(), spec)
+    return [_np(s._asdict()) for s in train.render_pair_dataset(
+        ecfg, n_frames, low_w, low_h, **kw)]
+
+
 def _main(src: str, dst: str) -> None:
     import jax
 

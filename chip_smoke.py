@@ -61,6 +61,26 @@ is printed.
    float32 step of up-s and of the head at the CPU tests' size on the card
    against the CPU (TF32 off: losses rtol 1e-4, gradients within 1e-5 x
    their max; bf16 losses rtol 1e-2);
+5d. render switches (main paths; ``phase_switches``, on the 1024^3 world
+   at 1280x800 -> 3840x2400): slim carry (``BENCH_SLIM=1``): bench.py's
+   loop, 2 + 6 frames, K1 launches == traces; K1's slim variant bit for bit
+   against the slim plain loop on the checkerboard primary trace (512 000
+   lanes, with its times and bound) and on a GI window's two respite
+   phases, and graph-timed against the carried variant in alternating
+   rounds.  The fused cone table (``gi_fused_cone``): the loop, 2 + 6
+   frames; a GI frame and one without under ``torch.profiler`` with the
+   flag on and off (device launches and busy time a frame); one 64^3 frame on the card
+   against the CPU's plain path (>= 50 dB, the occlusion mip bit for bit).
+   The temporal start hints: a frame, then the next one hinted from its
+   prepass (``temporal_hints_from_prepass``) against the same frame
+   unhinted (hits within n/1000, >= 50 dB; the hits that ``sky_start``
+   flips are counted, not held).  The PNG atlas: a 64^3 world
+   built with ``REFERENCE_PNG`` pointing at a PNG the script writes (every
+   row filter), its atlas ``load_png``'s, and a headline base frame with
+   it.  The viewer (``driver/viewer.py``) over an ``Engine`` on the 1024^3
+   world: three MJPEG parts and one input POST through urllib, the server
+   stopped.  ``utils/profiling.device_time_ms`` on one frame beside its
+   CUDA-event time;
 6. traced GI init (main path): ``config_stage4``'s GI init on the same
    world (stage 4's): one sun-shadow ray per GI cell through K1, at stride
    (1, 1) all 2^24 cells in one trace and at (2, 2) 2^22, each timed; K1 on
@@ -70,8 +90,9 @@ is printed.
 7. CLI (main path): ``python -m rvgrt_tpu_torch.driver.cli --config stage4
    --frames 6 --fly --upscale temporal --out <tmp>`` through ``cli.main``:
    a second 1024^3 world with the traced init, ``Engine.step`` frames at
-   1920x1080, the 3x upscale to 5760x3240 through K2, and the native PNG
-   sink (built with g++); 6 PNGs written, K1 launches == traces;
+   1920x1080, the 3x upscale to 5760x3240 with the accumulator's default
+   taps (as the JAX CLI; no K2), and the native PNG sink (built
+   with g++); 6 PNGs written, K1 launches == traces;
 8. respite cost: one GI window with straggler budget 12 and with 0, timed
    as the main path pays for it (CUDA events around ``update_gi``);
 9. reference: on a 64^3 world at 128x80, on the GPU and on the CPU (where
@@ -98,9 +119,10 @@ is printed.
    and whole in one launch; its row's times and bound), the quarter primary
    trace, a GI window's respite phase 1 (budget 12) and phase 2, config-4's
    checkerboard and quarter primary traces and the full-rate path's primary
-   trace, each bit-exact and graph-timed (and the GI init's, phase 6); K2 at
-   the headline's (2400, 3840), config-4's (1080, 1920) and the CLI's
-   (3240, 5760) histories; K3 at the world build's four passes.  P1's and
+   trace, each bit-exact and graph-timed (and the GI init's, phase 6; the
+   slim variant's, phase 5d); K2 at the headline's (2400, 3840),
+   config-4's (1080, 1920) and the CLI's (3240, 5760) histories (the last
+   by a direct call on the CLI's state); K3 at the world build's four passes.  P1's and
    P2's rows are phase 10's, at the 100 MiB table;
 12. the big worlds (main path; ``phase_big_world``, also run alone by
    ``python3 -m rvgrt_tpu_torch.tools.big_world``), each alone on the card
@@ -123,7 +145,8 @@ Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
 line sums each kernel's launches over the build, the three frame paths, the
 GI init, the post modes, the CLIs, the two trainers' pair renders and world
-builds, the probe's gathers and the big worlds' builds, init and frames.
+builds, the render switches' loops, hinted frame and viewer, the probe's
+gathers and the big worlds' builds, init and frames.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
@@ -755,23 +778,29 @@ def k1_step_ops(cfg, rcfg, dirs, s, nxt, sky_y, gathered, read,
         for key in keys:
             read[key] |= m
 
+    slim = rcfg.slim_carry
     if sky_y is not None:
         mark(("py", "dy"), sky | sphere)  # the sky test
-    mark(K1_POS, sphere | jump)  # the gather index, OOB test, march, jump
+    mark(K1_POS, sphere | jump | (act if slim else False))
     mark(K1_DIR, march | jump)
     mark(("its",), jump | act)
-    mark(K1_DD_ST, to_dda | act)  # tMax set-up, the DDA steps
+    # tMax set-up at the turn (carried), the DDA steps; slim carry sets up
+    # no tMax at the turn and reads no tMax word
+    mark(K1_DD_ST, act if slim else to_dda | act)
     mark(K1_CELL, (probe | act) & ~turned)
-    mark(K1_TM, act & ~turned)
+    if not slim:
+        mark(K1_TM, act & ~turned)
     turned |= to_dda
 
     def count(m):
         return int(m.sum())
 
     substeps = int((nxt["its"] - s["its"])[act].sum())
+    # slim: 9 operations fewer at the turn, 18 more (three recomputed
+    # tMax words) at each DDA action superstep
     return (5 * count(live) + 4 * count(sky) + 30 * count(sphere)
-            + 15 * count(to_dda) + 30 * count(probe) + 10 * count(act)
-            + 15 * substeps)
+            + (6 if slim else 15) * count(to_dda) + 30 * count(probe)
+            + (28 if slim else 10) * count(act) + 15 * substeps)
 
 
 def k1_trace_bytes(s0, s1, read, gathered) -> dict:
@@ -1822,11 +1851,13 @@ def phase_cli(dev, config: str, frames: int, counts: dict) -> tuple:
     """The port's headless driver as a user runs it:
     ``cli.main(["--config", config, "--frames", frames, "--fly",
     "--upscale", "temporal", "--out", dir])`` - the world build with its
-    traced GI init, ``Engine.step`` frames, the 3x temporal upscale through
-    K2 and the native PNG sink - counted as one main path
+    traced GI init, ``Engine.step`` frames, the 3x temporal upscale with
+    the accumulator's default ``bilinear_shift`` warp (the JAX CLI's; no
+    K2) and the native PNG sink - counted as one main path
     (``counts["cli"]``).  Asserts the PNGs were written, K1 launches ==
-    traces and one K2 launch a frame.  Returns the report and the last
-    upscale's history state and motion (K2's inputs there)."""
+    traces and no K2 launch.  Returns the report and the last upscale's
+    history state and motion (K2 is held at that shape by a direct
+    call)."""
     import tempfile
 
     import torch
@@ -1862,7 +1893,7 @@ def phase_cli(dev, config: str, frames: int, counts: dict) -> tuple:
             int.from_bytes(head[20:24], "big"))
     hh, hw = last["state"].history.shape[:2]
     assert size == (hw, hh), (size, (hw, hh))
-    assert c["K1"] == st["traces"] > 0 and c["K2"] == frames, (c, st)
+    assert c["K1"] == st["traces"] > 0 and c["K2"] == 0, (c, st)
     report = dict(stats, config=config, frames=frames, png_size=size,
                   launches=c, traces=st["traces"],
                   supersteps=st["supersteps"],
@@ -2129,6 +2160,401 @@ def phase_big_world(dev, name: str, frames: int, counts: dict,
     return report
 
 
+#: timed frames of each render switch's loop (slim carry, fused cone),
+#: after frame_loop.WARMUP
+SWITCH_FRAMES = 6
+
+
+def write_png(path: str, img) -> None:
+    """An 8-bit RGBA PNG of the (H, W, 4) uint8 array ``img``, row y
+    filtered with PNG filter y % 5 (None, Sub, Up, Average, Paeth), so
+    that the decoder's every filter runs."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int32)
+    raw = bytearray()
+    for y in range(h):
+        cur = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(c, np.int32), cur[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int32), up[:-c]])
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, ul))
+        f = y % 5
+        pred = [0, left, up, (left + up) >> 1, paeth][f]
+        raw.append(f)
+        raw += ((cur - pred) & 0xFF).astype(np.uint8).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0,
+                                             0))
+                + chunk(b"IDAT", zlib.compress(bytes(raw), 6))
+                + chunk(b"IEND", b""))
+
+
+def k1_variant_rounds(cfg, table, sky_y, rcfg, s0, dirs, dev,
+                      rounds: int = 4) -> dict:
+    """K1's carried and slim variants on one trace's start state, each the
+    graph-timed device time of one launch, in alternating rounds
+    (carried, slim, slim, carried, ...): a graph timing depends on what
+    ran before it."""
+    from rvgrt_tpu_torch.ops import superstep_kernel as k1
+    from rvgrt_tpu_torch.utils.timer import graph_ms
+
+    variants = {name: dataclasses.replace(rcfg, slim_carry=name == "slim")
+                for name in ("carried", "slim")}
+    sk = {k: v.clone() for k, v in s0.items()}
+
+    def reset():
+        for key, v in s0.items():
+            sk[key].copy_(v)
+
+    ms = {name: [] for name in variants}
+    for r in range(rounds):
+        for name in (("carried", "slim") if r % 2 == 0
+                     else ("slim", "carried")):
+            rc = variants[name]
+            ms[name].append(graph_ms(lambda rc=rc: k1.trace_supersteps(
+                cfg, rc, table, dirs, sk, sky_y=sky_y), dev, setup=reset))
+    return {**{f"{n}_rounds_ms": v for n, v in ms.items()},
+            **{f"{n}_ms": statistics.median(v) for n, v in ms.items()}}
+
+
+def read_mjpeg_part(stream) -> bytes:
+    """One part of the viewer's multipart MJPEG stream: its JPEG bytes."""
+    line = stream.readline()
+    assert line == b"--f\r\n", line
+    headers = {}
+    while True:
+        line = stream.readline()
+        if line in (b"\r\n", b""):
+            break
+        key, val = line.decode().split(":", 1)
+        headers[key.strip().lower()] = val.strip()
+    data = stream.read(int(headers["content-length"]))
+    assert stream.read(2) == b"\r\n"
+    assert headers["content-type"] == "image/jpeg" and data[:2] == \
+        b"\xff\xd8", headers
+    return data
+
+
+def phase_viewer(ecfg, world, pose, dev, counts: dict) -> dict:
+    """``driver/viewer.py`` over a real engine (the headline config on the
+    1024^3 world, ``Engine.step`` at full rate with GI every frame): the
+    server on 127.0.0.1, port 0; three MJPEG parts fetched with urllib, one
+    input POSTed (it must move the camera), the server stopped.  Counted as
+    a main path (``counts["viewer"]``): K1 launches == traces."""
+    import json
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from rvgrt_tpu_torch.driver import engine
+    from rvgrt_tpu_torch.driver.viewer import ViewerServer
+    from rvgrt_tpu_torch.trace import wavefront
+
+    eng = engine.Engine(ecfg, verbose=False, device=dev,
+                        world=engine.World(**vars(world)))
+    eng.character = make_character(ecfg, pose)
+    reset_counts()
+    srv = ViewerServer(eng, host="127.0.0.1", port=0).start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        t0 = time.perf_counter()
+        arrivals, sizes = [], []
+        with urllib.request.urlopen(base + "/stream", timeout=300) as s:
+            for _ in range(3):
+                sizes.append(len(read_mjpeg_part(s)))
+                arrivals.append((time.perf_counter() - t0) * 1e3)
+        pos0 = eng.character.position.copy()
+        seen = srv.frame_count
+        req = urllib.request.Request(
+            base + "/input", data=json.dumps({"move_z": 1}).encode(),
+            method="POST")
+        assert urllib.request.urlopen(req, timeout=60).status == 204
+        deadline = time.time() + 120
+        while srv.frame_count < seen + 2 and time.time() < deadline:
+            time.sleep(0.01)
+        moved = float(np.linalg.norm(eng.character.position - pos0))
+        stats = json.loads(urllib.request.urlopen(base + "/stats",
+                                                  timeout=60).read())
+    finally:
+        srv.stop()
+    torch.cuda.synchronize(dev)
+    c = counts["viewer"] = read_counts()
+    st = wavefront.read_stats()
+    assert srv.frame_count >= seen + 2, (srv.frame_count, seen)
+    assert moved > 0.0, "the posted input did not move the camera"
+    assert c["K1"] == st["traces"] > 0, (c, st)
+    return dict(parts_arrival_ms=arrivals, jpeg_bytes=sizes,
+                frames=srv.frame_count, last_frame_ms=srv.last_frame_ms,
+                stats=stats, moved=moved, launches=c,
+                traces=st["traces"])
+
+
+def phase_switches(eng, ecfg, pose, dev, counts: dict,
+                   frames: int = SWITCH_FRAMES) -> dict:
+    """The render switches the JAX package has beside the headline's
+    defaults, on the 1024^3 world at 1280x800 -> 3840x2400: slim carry
+    (``BENCH_SLIM=1``): bench.py's loop (``WARMUP`` + ``frames``), K1's slim
+    variant bit for bit against the slim plain loop on the checkerboard
+    primary trace (with its bound) and on a GI window's two respite
+    phases, and graph-timed against the carried variant in alternating
+    rounds; the fused cone table (``gi_fused_cone``): the loop, and a GI
+    frame and one without under ``torch.profiler`` with the flag on and
+    off (their eager launches), and one 64^3 frame on the card against the CPU's
+    plain path (>= 50 dB); the temporal start hints: two frames, the
+    second hinted from the first's prepass, against the unhinted second
+    (hits within n/1000, >= 50 dB; with ``sky_start`` the flips are only
+    counted); the PNG atlas: a world built with
+    ``REFERENCE_PNG`` pointing at a PNG this script writes, and a
+    headline base frame with it; the viewer (``phase_viewer``); and
+    ``utils/profiling.device_time_ms`` on one frame beside its CUDA-event
+    time.  The loops, the hinted frame and the viewer are main paths,
+    each counted on its own."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rvgrt_tpu_torch.core import u32
+    from rvgrt_tpu_torch.driver import engine, frame_loop
+    from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.render import pipeline
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.utils import profiling
+    from rvgrt_tpu_torch.utils.timer import Timer
+    from rvgrt_tpu_torch.world import atlas as atlas_mod
+    from rvgrt_tpu_torch.world import gi_grid
+
+    w, cfg = eng.world, ecfg.world
+    rep = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rep.setdefault("wall_s", {})[name] = now - clock[0]
+        clock[0] = now
+
+    def switched(**render):
+        return dataclasses.replace(ecfg, render=dataclasses.replace(
+            ecfg.render, **render))
+
+    # ---- slim carry: bench.py's loop with BENCH_SLIM=1 (main path) ----
+    slim = switched(slim_carry=True)
+    reset_counts()
+    run = run_loop(w, slim, pose, frames, dev, scale=3)
+    torch.cuda.synchronize(dev)
+    c = counts["slim_carry"] = read_counts()
+    st = wavefront.read_stats()
+    loop_rep = loop_report(run, c, st)
+    assert loop_rep["tier_mix"] == expected_mix(frames), loop_rep["tier_mix"]
+    check_launches(c, st, len(run["ms"]), run["loop"].gi_windows)
+    check_image(run["results"][-1].image, (3 * HEIGHT, 3 * WIDTH, 3))
+    cam = run["cams"][-1][1]
+    rs, s0, dirs = k1_primary(lambda: pipeline.render_frame(
+        w.bits, w.sdf, w.gi, w.atlas, cam, slim, include_gi=False,
+        sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True,
+        checker_parity=1), HEIGHT * (WIDTH // 2))
+    assert rs.slim_carry
+    k1s = check_k1(cfg, w.trace_table, w.sky_y, rs, s0, dirs, dev,
+                   plain_reps=1, what="the slim checkerboard primary trace")
+    calls = capture_k1(lambda: gi_update.update_gi(
+        w.gi, w.bits, w.sdf, w.atlas, slim, 0, 0, sky_y=w.sky_y,
+        table=w.trace_table))
+    assert len(calls) == 4 and all(k[0].slim_carry for k in calls), calls
+    k1s["traces"] = {name: check_k1_trace(cfg, w.trace_table, w.sky_y,
+                                          *calls[i], dev)
+                     for name, i in (("gi_phase1", 2), ("gi_phase2", 3))}
+    k1s["against_carried"] = k1_variant_rounds(cfg, w.trace_table, w.sky_y,
+                                               rs, s0, dirs, dev)
+    rep["slim_carry"] = dict(loop=loop_rep, k1=k1s)
+    log(f"slim carry: median {loop_rep['ms_median']:.1f} ms, K1 "
+        f"{c['K1']} launches for {st['traces']} traces; K1 slim "
+        f"{k1s['ms']:.4f} ms (bound {k1s['bound_ms']:.4f}), rounds "
+        f"{k1s['against_carried']}")
+    del run, calls
+    lap("slim_carry")
+
+    # ---- the fused cone table (main path) ----
+    cone = switched(gi_fused_cone=True)
+    with Timer("occlusion", verbose=False, device=dev) as t:
+        wc = engine.World(**{**vars(w),
+                             "gi_occ": gi_grid.build_occlusion(w.sdf, cfg)})
+    occ_ms = t.elapsed_ms
+    reset_counts()
+    runc = run_loop(wc, cone, pose, frames, dev, scale=3)
+    torch.cuda.synchronize(dev)
+    c = counts["fused_cone"] = read_counts()
+    st = wavefront.read_stats()
+    cone_rep = loop_report(runc, c, st)
+    check_launches(c, st, len(runc["ms"]), runc["loop"].gi_windows)
+    check_image(runc["results"][-1].image, (3 * HEIGHT, 3 * WIDTH, 3))
+    per_frame = {}
+    for name, e, world in (("on", cone, wc), ("off", ecfg, w)):
+        loop = frame_loop.FrameLoop(world, e, scale=3)
+        per_frame[name] = []
+        for i in range(2):  # a GI frame and one without
+            cam_i, rate_i = runc["cams"][i][1], runc["rates"][i]
+            wall, busy, n, _ = profiled(
+                lambda i=i, cam_i=cam_i, rate_i=rate_i: loop.frame(
+                    i, cam_i, rate_i))
+            per_frame[name].append(dict(
+                frame=i, rate=rate_i, gi=i % frame_loop.GI_CADENCE == 0,
+                wall_ms=wall, device_busy_ms=busy, device_launches=n))
+        del loop
+    small = headline_config(6, 128, 80)
+    small = dataclasses.replace(small, render=dataclasses.replace(
+        small.render, gi_fused_cone=True))
+    outs = {}
+    for d in (dev, "cpu"):
+        e = engine.Engine(small, verbose=False, device=d)
+        e.character = make_character(small, REF_POSE)
+        outs[str(d)] = (u32.to_numpy(e.world.gi_occ), e.step(time_s=1.0))
+    (occ_g, og), (occ_c, oc) = outs[str(dev)], outs["cpu"]
+    np.testing.assert_array_equal(occ_g, occ_c, err_msg="gi_occ")
+    cone_db = psnr(og.color, oc.color)
+    assert cone_db >= 50.0, cone_db
+    assert bool(((og.depth == 1.0).cpu() == (oc.depth == 1.0)).all())
+    rep["fused_cone"] = dict(
+        loop=cone_rep, occlusion_build_ms=occ_ms,
+        launches_per_frame=per_frame,
+        reference_64=dict(composite_psnr_db=cone_db, gi_occ_bit_exact=True,
+                          hit_classification_equal=True))
+    log(f"fused cone: median {cone_rep['ms_median']:.1f} ms; launches a "
+        f"frame on {[f['device_launches'] for f in per_frame['on']]}, off "
+        f"{[f['device_launches'] for f in per_frame['off']]}; 64^3 GPU vs "
+        f"CPU {cone_db:.1f} dB")
+    del runc, wc, outs
+    lap("fused_cone")
+
+    # ---- the temporal start hints (main path: the hinted frame) ----
+    cams = frame_loop.path_cameras(make_character(ecfg, pose),
+                                   frame_loop.path_yaws(2)[:2], time_s=1.0,
+                                   device=dev)
+    (_, cam0), (_, cam1) = cams
+
+    def base(cam, **kw):
+        with Timer("frame", verbose=False, device=dev) as t:
+            out = pipeline.render_frame(
+                w.bits, w.sdf, w.gi, w.atlas, cam, ecfg, include_gi=False,
+                sky_y=w.sky_y, table=w.trace_table, **kw)
+        return out, t.elapsed_ms
+
+    out0, ms0 = base(cam0)
+    wavefront.reset_stats()
+    ref1, ms_ref = base(cam1)
+    st_ref = wavefront.read_stats()
+    ref_hit = ref1.depth < 1.0
+    # sky_start (an all-sky window under a camera that did not move
+    # retires the ray at once), as tests/test_temporal_starts.py passes it:
+    # measured, not held - JAX's docstring warns that a start beyond
+    # miss_distance - dist_bias drops distant hits the prepass missed
+    hh, hf = pipeline.temporal_hints_from_prepass(
+        out0.half_dist, cam1, cam0, ecfg.render, sky_start=4.0 * cfg.size_x)
+    sky1, _ = base(cam1, hint_half=hh, hint_full=hf)
+    sky_flipped = int((ref_hit != (sky1.depth < 1.0)).sum())
+    del hh, hf, sky1
+    hint_half, hint_full = pipeline.temporal_hints_from_prepass(
+        out0.half_dist, cam1, cam0, ecfg.render)
+    reset_counts()
+    got1, ms_hint = base(cam1, hint_half=hint_half, hint_full=hint_full)
+    torch.cuda.synchronize(dev)
+    c = counts["hints"] = read_counts()
+    st = wavefront.read_stats()
+    assert c["K1"] == st["traces"] > 0, (c, st)
+    got_hit = got1.depth < 1.0
+    flipped = int((ref_hit != got_hit).sum())
+    hint_db = psnr(got1.color, ref1.color)
+    far = float(((ref1.half_dist - got1.half_dist).abs() > 0.51)
+                .float().mean())
+    assert flipped <= max(1, ref_hit.numel() // 1000), flipped
+    assert hint_db >= 50.0, hint_db
+    assert far <= 2e-3, far
+    rep["hints"] = dict(flipped_hits=flipped, pixels=ref_hit.numel(),
+                        flipped_hits_with_sky_start=sky_flipped,
+                        color_psnr_db=hint_db, half_dist_far_share=far,
+                        hinted_share=float((hint_full > 0).float().mean()),
+                        frame_ms=dict(first=ms0, unhinted=ms_ref,
+                                      hinted=ms_hint),
+                        launches=c, traces=st["traces"],
+                        supersteps=st["supersteps"],
+                        supersteps_unhinted=st_ref["supersteps"])
+    log(f"hints: {rep['hints']}")
+    del out0, ref1, got1, hint_half, hint_full
+    lap("hints")
+
+    # ---- the PNG atlas ----
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:256, 0:256]
+    img = ((np.stack([xx, yy, xx ^ yy, xx + yy], -1)
+            + rng.integers(0, 40, (256, 256, 4))) & 0xFF).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "texturepack.png")
+        write_png(path, img)
+        real = atlas_mod.REFERENCE_PNG
+        atlas_mod.REFERENCE_PNG = path
+        try:
+            with Timer("png", verbose=False) as t:
+                wp = engine.build_world(headline_config(6, 128, 80),
+                                        verbose=False, device=dev)
+        finally:
+            atlas_mod.REFERENCE_PNG = real
+        want = atlas_mod.load_png(path, device=dev)
+    proc = atlas_mod.procedural_atlas(dev)
+    assert torch.equal(wp.atlas, want) and not torch.equal(want, proc)
+    frames_png = {}
+    for name, atl in (("png", want), ("procedural", proc)):
+        out = pipeline.render_frame(
+            w.bits, w.sdf, w.gi, atl, cam0, ecfg, include_gi=False,
+            sky_y=w.sky_y, table=w.trace_table)
+        check_image(out.color, (HEIGHT, WIDTH, 3))
+        frames_png[name] = out.color
+    differ = float((frames_png["png"] != frames_png["procedural"])
+                   .float().mean())
+    assert differ > 0.0, "the PNG atlas changed no pixel"
+    rep["png_atlas"] = dict(build_64_s=t.elapsed_ms / 1e3,
+                            pixels_changed_share=differ)
+    del wp, frames_png
+    lap("png_atlas")
+
+    # ---- the viewer (main path) ----
+    rep["viewer"] = phase_viewer(ecfg, w, pose, dev, counts)
+    log(f"viewer: {rep['viewer']}")
+    lap("viewer")
+
+    # ---- the profiler on one frame ----
+    loop = frame_loop.FrameLoop(w, ecfg, scale=3)
+    cam_p = cams[0][1]
+
+    def frame():
+        loop.frame(0, cam_p, "checker")
+
+    dev_ms, top = profiling.device_time_ms(frame, warmup=1)
+    with Timer("frame", verbose=False, device=dev) as t:
+        frame()
+    assert math.isfinite(dev_ms) and 0.0 < dev_ms, dev_ms
+    rep["profiler"] = dict(device_time_ms=dev_ms, event_ms=t.elapsed_ms,
+                           top_kernels_ms=top)
+    log(f"profiler: device {dev_ms:.2f} ms, CUDA events {t.elapsed_ms:.2f}"
+        f" ms")
+    lap("profiler")
+    return rep
+
+
 KERNELS = {
     "K1": dict(name="trace_supersteps",
                source="rvgrt_tpu_torch/csrc/superstep_kernel.cu",
@@ -2262,6 +2688,12 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     del outs
     lap("full_rate")
 
+    # ---- main paths: the render switches (slim carry, the fused cone
+    # table, the temporal start hints), the PNG atlas, the viewer and the
+    # profiler ----
+    report["switches"] = phase_switches(eng, ecfg, pose, dev, counts)
+    lap("switches")
+
     # ---- main paths: bench.py's other post stages, the world checkpoint
     # and the CLI with the learned upscaler ----
     report["post_modes"] = phase_post_modes(eng.world, ecfg, pose, dev,
@@ -2322,6 +2754,7 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
                          for name in ("quarter", "gi_phase1", "gi_phase2",
                                       "c4_checker", "c4_quarter", "full")})
     k1["traces"]["gi_init"] = report["gi_init"]["k1"]
+    k1["slim_carry"] = report["switches"]["slim_carry"]["k1"]
     log(f"K1: {k1}")
     del k1_in
     lap("check_k1")
@@ -2440,6 +2873,7 @@ def main(argv=None) -> int:
     print(json.dumps({k: report[k] for k in (
         "post_modes", "world_checkpoint", "cli_net")}), flush=True)
     print(json.dumps({"train": report["train"]}), flush=True)
+    print(json.dumps({"switches": report["switches"]}), flush=True)
     for n in worlds:
         print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)

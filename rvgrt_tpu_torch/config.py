@@ -248,6 +248,9 @@ class RenderConfig:
     # same class as the fast-trace cadence (hits/normals gated at the
     # image level).  Default off: golden tests keep the reference
     # bit-exact incremental carry.
+    # In this port K1 holds a ray's state in registers, so the flag saves
+    # no traffic; it selects the same recomputed tMax (K1's slim variant
+    # and the plain loop's carry_tm=False), for the same hits as JAX.
     slim_carry: bool = False
 
     # start-distance cascade: trace 1/(2*prepass_cascade) of full res from

@@ -45,3 +45,8 @@ def evaluate_density(x, y, z, cfg: TerrainConfig = TerrainConfig()):
 
     # Hard sea floor overrides everything below water_floor_y.
     return torch.where(y <= cfg.water_floor_y, 100.0, density)
+
+
+def is_solid_density(x, y, z, cfg: TerrainConfig = TerrainConfig(),
+                     threshold: float = 0.7):
+    return evaluate_density(x, y, z, cfg) > threshold

@@ -22,6 +22,17 @@ def f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=_F32)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded on every device (as XLA's,
+    numpy's and CUDA's are).  PyTorch's vectorised CPU ``sqrt`` is
+    0.5001-ulp accurate and rounds about 0.7 % of float32 inputs the other
+    way, so on the CPU it goes through float64 (whose result rounds to the
+    correct float32)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).to(_F32)
+    return torch.sqrt(x)
+
+
 def v3(x, y, z):
     return (f32(x), f32(y), f32(z))
 
@@ -78,6 +89,10 @@ def reflect(d, n):
     """r = d - 2*dot(d,n)*n (cumath.cuh reflect)."""
     k = 2.0 * dot(d, n)
     return sub(d, scale(n, k))
+
+
+def clamp01(a):
+    return tuple(torch.clamp(c, 0.0, 1.0) for c in a)
 
 
 def where(mask, a, b):

@@ -61,6 +61,15 @@
 // branches, instruction rate) is not measured yet.  Built with -fmad=false: every multiply and add
 // rounds separately, as in the reference's graphs.
 //
+// Slim carry (RenderConfig.slim_carry, the JAX tracer's carry_tm=False):
+// the SLIM instantiation of superstep / trace_kernel keeps no tMax between
+// supersteps.  Each DDA action superstep recomputes it from the frozen
+// DDA-entry position and the current cell, as wavefront.recompute_tmax
+// does, before its substeps; the turn to DDA sets none, and the tMax words
+// are neither loaded nor stored.  A carried value differs from the
+// recomputed one by rounding, so no register value is reused across
+// supersteps.  The two instantiations share every other line.
+//
 // ptxas for sm_90a (RVGRT_PTXAS_VERBOSE=1): trace_kernel uses 43 registers,
 // no stack frame and no spills; the register file then holds at most 5
 // blocks of 256 threads (40 of 64 warps) per SM.
@@ -162,8 +171,19 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// tMax of cell i on one axis from the DDA-entry coordinate p (slim carry):
+// wavefront.recompute_tmax, in its order of operations; a zero-direction
+// lane whose entry sits on a boundary is parked at 1e10.
+__device__ __forceinline__ float recompute_tmax(float p, int i, int st,
+                                                float dd) {
+  const float fi = (float)i;
+  const float tm = (st > 0 ? (fi + 1.0f) - p : p - fi) * dd;
+  return (st == 0 && tm == 0.0f) ? 1e10f : tm;
+}
+
 // One superstep of a live ray (phase SPHERE or DDA), in place on `r`.
-// Returns the DIRTY_* groups it wrote.
+// Returns the DIRTY_* groups it wrote.  SLIM: slim carry (r.tm* unused).
+template <bool SLIM>
 __device__ __forceinline__ unsigned superstep(
     const TraceParams& p, const uint32_t* __restrict__ table, bool has_sky,
     float sky, const Dir& d, Ray& r) {
@@ -239,14 +259,17 @@ __device__ __forceinline__ unsigned superstep(
       r.ix = (int)fx;
       r.iy = (int)fy;
       r.iz = (int)fz;
-      r.tmx = (d.stx > 0 ? (fx + 1.0f) - nx : nx - fx) * d.ddx;
-      r.tmy = (d.sty > 0 ? (fy + 1.0f) - ny : ny - fy) * d.ddy;
-      r.tmz = (d.stz > 0 ? (fz + 1.0f) - nz : nz - fz) * d.ddz;
+      if (!SLIM) {
+        r.tmx = (d.stx > 0 ? (fx + 1.0f) - nx : nx - fx) * d.ddx;
+        r.tmy = (d.sty > 0 ? (fy + 1.0f) - ny : ny - fy) * d.ddy;
+        r.tmz = (d.stz > 0 ? (fz + 1.0f) - nz : nz - fz) * d.ddz;
+        dirty |= DIRTY_TM;
+      }
       fl = set_field(fl, PH_SH, PH_W, PHASE_DDA);
       fl = set_field(fl, MK_SH, MK_W, MASK_NONE);
       fl = set_field(fl, DD_SH, DD_W, 0);
       fl &= ~(1u << PR_SH);
-      dirty |= DIRTY_CELL | DIRTY_TM;
+      dirty |= DIRTY_CELL;
     }
   } else if (probe_turn) {
     // ================= DDA probe superstep =================
@@ -277,7 +300,16 @@ __device__ __forceinline__ unsigned superstep(
     // ================= DDA action superstep =================
     const float ddx = d.ddx, ddy = d.ddy, ddz = d.ddz;
     const int stx = d.stx, sty = d.sty, stz = d.stz;
-    float ltmx = r.tmx, ltmy = r.tmy, ltmz = r.tmz;
+    float ltmx, ltmy, ltmz;
+    if (SLIM) {
+      ltmx = recompute_tmax(x, cix, stx, ddx);
+      ltmy = recompute_tmax(y, ciy, sty, ddy);
+      ltmz = recompute_tmax(z, ciz, stz, ddz);
+    } else {
+      ltmx = r.tmx;
+      ltmy = r.tmy;
+      ltmz = r.tmz;
+    }
     int lmask = (int)get_field(fl, MK_SH, MK_W);
     int ldda = dda_i;
     int lits = r.its;
@@ -322,21 +354,25 @@ __device__ __forceinline__ unsigned superstep(
     r.ix = cix;
     r.iy = ciy;
     r.iz = ciz;
-    r.tmx = ltmx;
-    r.tmy = ltmy;
-    r.tmz = ltmz;
+    if (!SLIM) {
+      r.tmx = ltmx;
+      r.tmy = ltmy;
+      r.tmz = ltmz;
+      dirty |= DIRTY_TM;
+    }
     r.its = lits;
     fl = set_field(set_field(fl, MK_SH, MK_W, (uint32_t)lmask), DD_SH, DD_W,
                    (uint32_t)ldda);
     if (stepped) fl &= ~(1u << PR_SH);
     if (hit) fl = set_field(fl, PH_SH, PH_W, PHASE_HIT);
     if (miss) fl = set_field(fl, PH_SH, PH_W, PHASE_MISS);
-    dirty |= DIRTY_CELL | DIRTY_TM | DIRTY_ITS;
+    dirty |= DIRTY_CELL | DIRTY_ITS;
   }
   r.fl = fl;
   return dirty;
 }
 
+template <bool SLIM>
 __global__ void __launch_bounds__(BLOCK) trace_kernel(
     TraceParams p, const uint32_t* __restrict__ table,
     const float* __restrict__ sky_y, float* __restrict__ px,
@@ -390,9 +426,11 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(
               r.ix = ix[idx];
               r.iy = iy[idx];
               r.iz = iz[idx];
-              r.tmx = tmx[idx];
-              r.tmy = tmy[idx];
-              r.tmz = tmz[idx];
+              if (!SLIM) {
+                r.tmx = tmx[idx];
+                r.tmy = tmy[idx];
+                r.tmz = tmz[idx];
+              }
             }
             d.dx = dxa[idx];
             d.dy = dya[idx];
@@ -415,7 +453,7 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(
       continue;
     }
     if (ray >= 0) {
-      dirty |= superstep(p, table, has_sky, sky, d, r);
+      dirty |= superstep<SLIM>(p, table, has_sky, sky, d, r);
       ++count;
       const bool retired = (int)get_field(r.fl, PH_SH, PH_W) >= PHASE_MISS;
       if (retired || count >= step_cap) {
@@ -447,8 +485,9 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(
   if (lane == 0 && warp_steps > 0) atomicMax(scratch + 1, warp_steps);
 }
 
-// The number of trace_kernel blocks that fill the current device: resident
-// blocks per SM times SMs (cached per device).
+// The number of trace_kernel<SLIM> blocks that fill the current device:
+// resident blocks per SM times SMs (cached per device and variant).
+template <bool SLIM>
 cudaError_t full_grid(int* grid) {
   static int cached[64] = {0};
   int dev = 0;
@@ -460,8 +499,8 @@ cudaError_t full_grid(int* grid) {
     return cudaSuccess;
   }
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_kernel,
-                                                      BLOCK, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, trace_kernel<SLIM>, BLOCK, 0);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -471,32 +510,47 @@ cudaError_t full_grid(int* grid) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// scratch: 2 int32 on the device, [ray counter, steps]; zeroed here.
-extern "C" int rvgrt_trace(
+template <bool SLIM>
+cudaError_t launch_trace(
     TraceParams p, const void* table, const void* sky_y, void* px, void* py,
     void* pz, void* ix, void* iy, void* iz, void* flags, void* its, void* tmx,
     void* tmy, void* tmz, const void* dx, const void* dy, const void* dz,
     const void* ddx, const void* ddy, const void* ddz, const void* stx,
     const void* sty, const void* stz, int n, int step_cap, int check_every,
-    void* scratch, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0 || step_cap <= 0) return 0;
-  if (check_every < 1) check_every = 1;
+    void* scratch, cudaStream_t st) {
   int fill = 0;
-  err = full_grid(&fill);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = full_grid<SLIM>(&fill);
+  if (err != cudaSuccess) return err;
   const int needed = (n + BLOCK - 1) / BLOCK;
   const int grid = needed < fill ? needed : fill;
-  trace_kernel<<<grid, BLOCK, 0, st>>>(
+  trace_kernel<SLIM><<<grid, BLOCK, 0, st>>>(
       p, (const uint32_t*)table, (const float*)sky_y, (float*)px, (float*)py,
       (float*)pz, (int*)ix, (int*)iy, (int*)iz, (int*)flags, (int*)its,
       (float*)tmx, (float*)tmy, (float*)tmz, (const float*)dx,
       (const float*)dy, (const float*)dz, (const float*)ddx,
       (const float*)ddy, (const float*)ddz, (const int*)stx, (const int*)sty,
       (const int*)stz, n, step_cap, check_every, (int*)scratch);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// scratch: 2 int32 on the device, [ray counter, steps]; zeroed here.
+// slim != 0 runs the slim-carry variant.
+extern "C" int rvgrt_trace(
+    TraceParams p, const void* table, const void* sky_y, void* px, void* py,
+    void* pz, void* ix, void* iy, void* iz, void* flags, void* its, void* tmx,
+    void* tmy, void* tmz, const void* dx, const void* dy, const void* dz,
+    const void* ddx, const void* ddy, const void* ddz, const void* stx,
+    const void* sty, const void* stz, int n, int step_cap, int check_every,
+    int slim, void* scratch, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || step_cap <= 0) return 0;
+  if (check_every < 1) check_every = 1;
+  auto launch = slim ? &launch_trace<true> : &launch_trace<false>;
+  return (int)launch(p, table, sky_y, px, py, pz, ix, iy, iz, flags, its,
+                     tmx, tmy, tmz, dx, dy, dz, ddx, ddy, ddz, stx, sty, stz,
+                     n, step_cap, check_every, scratch, st);
 }

@@ -73,16 +73,15 @@ def save_world(path: str, world, ecfg: EngineConfig,
 def load_world(path: str, ecfg: EngineConfig, device=None):
     """Load a world checkpoint onto ``device``; its dimensions must be the
     config's.  ``sky_y`` and ``trace_table`` are derived again
-    (``voxel_grid.sky_limit``, ``wavefront.make_trace_table``); ``gi_occ``,
-    which only the fused cone path reads, is not ported.
+    (``voxel_grid.sky_limit``, ``wavefront.make_trace_table``), and so is
+    ``gi_occ`` (``gi_grid.build_occlusion``) when the config sets
+    ``gi_fused_cone``.
 
     Returns (World, frame_count, gi_offset)."""
     from rvgrt_tpu_torch.driver.engine import world_from_numpy
     from rvgrt_tpu_torch.trace import wavefront
-    from rvgrt_tpu_torch.world import voxel_grid
+    from rvgrt_tpu_torch.world import gi_grid, voxel_grid
 
-    if ecfg.render.gi_fused_cone:
-        raise NotImplementedError("gi_fused_cone is not ported")
     dev = resolve_device(device)
     with np.load(path) as d:
         meta = json.loads(bytes(d["meta"]).decode())
@@ -92,6 +91,8 @@ def load_world(path: str, ecfg: EngineConfig, device=None):
                 f"checkpoint {k}={meta[k]} != config {getattr(ecfg.world, k)}")
         world = world_from_numpy({k: d[k] for k in ("bits", "sdf", "gi",
                                                      "atlas")}, device=dev)
+    if ecfg.render.gi_fused_cone:
+        world.gi_occ = gi_grid.build_occlusion(world.sdf, ecfg.world)
     world.sky_y = voxel_grid.sky_limit(world.bits, ecfg.world)
     world.trace_table = wavefront.make_trace_table(world.bits, world.sdf,
                                                    ecfg.world)

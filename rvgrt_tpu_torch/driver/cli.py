@@ -12,10 +12,10 @@ the uint8 frame comes to the host.
 
 It runs on the GPU unless ``--device cpu`` is given.  ``--upscale
 temporal`` runs the analytic temporal super-resolution accumulator at 3x
-with the 9-phase jitter; its history warp is the exact 4-tap gather of the
-CUDA kernel K2 (``warp_taps="pallas"``), where the JAX CLI keeps the
-accumulator's default ``bilinear_shift``, a one-gather approximation
-chosen for the TPU's gather cost.  ``--upscale fresh`` runs the learned
+with the 9-phase jitter and the accumulator's default history warp
+(``bilinear_shift``, one gather), as the JAX CLI does; the exact 4-tap
+warp of kernel K2 (``warp_taps="pallas"``) is ``bench.py``'s, which
+``driver/frame_loop.py`` runs.  ``--upscale fresh`` runs the learned
 upscaler (``upscale/model.py``) with fresh weights from a seeded generator
 (a zero shuffle conv: its first output is the bilinear anchor blended with
 the empty history), ``--upscale PATH`` with a checkpoint's
@@ -208,8 +208,7 @@ def main(argv=None) -> dict:
             jitter = torch.tensor(eng.character.ray_jitter_ndc(),
                                   dtype=torch.float32, device=dev)
             hi, t_state = temporal.temporal_upscale(
-                out.color, out.motion, out.depth, jitter, t_state,
-                warp_taps="pallas")
+                out.color, out.motion, out.depth, jitter, t_state)
             img = to_u8(hi).cpu().numpy()
         elif net is not None:
             jitter = torch.tensor(eng.character.ray_jitter_ndc(),

@@ -41,6 +41,9 @@ class World:
     sdf: torch.Tensor    # (sdf_cells,) uint8 coarse SDF
     gi: torch.Tensor     # (gi_cells,) u32 packed RGBA8 radiance
     atlas: torch.Tensor  # (256*256,) u32 packed RGBA8 texture atlas
+    # derived: cone-occlusion mip at GI res (alpha-byte-shifted u32), built
+    # only for RenderConfig.gi_fused_cone; rebuilt on load, never persisted
+    gi_occ: torch.Tensor | None = None
     # derived: 1 + highest solid voxel y (f32 0-d) for sky early-exit
     sky_y: torch.Tensor | None = None
     # derived: combined tracer gather table [4x2x4 bricks | packed SDF]
@@ -101,8 +104,6 @@ def build_world(ecfg: EngineConfig, verbose: bool = True,
     freed as the next step returns."""
     dev = resolve_device(device)
     cfg = ecfg.world
-    if ecfg.render.gi_fused_cone:
-        raise NotImplementedError("gi_fused_cone is not ported")
     peaks = phase_peak_gb is not None and dev.type == "cuda"
 
     @contextlib.contextmanager
@@ -136,8 +137,13 @@ def build_world(ecfg: EngineConfig, verbose: bool = True,
                                                stride=ecfg.gi_init_stride)
     else:
         gi = gi_grid.zeros(cfg, dev)
-    return World(bits=bits, sdf=sdf, gi=gi, atlas=atlas, sky_y=sky_y,
-                 trace_table=table)
+    # the occlusion mip feeds only the fused cone table (off by default)
+    gi_occ = None
+    if ecfg.render.gi_fused_cone:
+        with phase("building cone occlusion"):
+            gi_occ = gi_grid.build_occlusion(sdf, cfg)
+    return World(bits=bits, sdf=sdf, gi=gi, atlas=atlas, gi_occ=gi_occ,
+                 sky_y=sky_y, trace_table=table)
 
 
 def camera_arrays(cam: Camera, vp: np.ndarray | None = None,
@@ -169,8 +175,8 @@ def base_frame_step(bits, sdf, gi, atlas, cam: pipeline.CameraArrays,
                                  return_gbuffer=True)
 
 
-def gi_composite_step(color, gb, gi, sdf, ecfg: EngineConfig):
-    return pipeline.gi_composite(color, gb, gi, sdf, ecfg)
+def gi_composite_step(color, gb, gi, sdf, ecfg: EngineConfig, gi_occ=None):
+    return pipeline.gi_composite(color, gb, gi, sdf, ecfg, gi_occ=gi_occ)
 
 
 class Engine:
@@ -222,7 +228,8 @@ class Engine:
             out, gb = base_frame_step(w.bits, w.sdf, gi, w.atlas, cam,
                                       self.ecfg, sky_y=w.sky_y,
                                       table=w.trace_table)
-            color = gi_composite_step(out.color, gb, gi, w.sdf, self.ecfg)
+            color = gi_composite_step(out.color, gb, gi, w.sdf, self.ecfg,
+                                      gi_occ=w.gi_occ)
             out = out._replace(color=color)
         else:
             gi = w.gi
@@ -233,7 +240,7 @@ class Engine:
                                     table=w.trace_table)
             out = pipeline.render_frame(
                 w.bits, w.sdf, gi, w.atlas, cam, self.ecfg,
-                include_gi=self.include_gi, sky_y=w.sky_y,
+                include_gi=self.include_gi, gi_occ=w.gi_occ, sky_y=w.sky_y,
                 table=w.trace_table)
         self.world.gi = gi
         self.frame_count += 1
@@ -250,6 +257,7 @@ class Engine:
                                   self.ecfg, sky_y=w.sky_y,
                                   table=w.trace_table)
         if self.include_gi:
-            color = gi_composite_step(out.color, gb, w.gi, w.sdf, self.ecfg)
+            color = gi_composite_step(out.color, gb, w.gi, w.sdf, self.ecfg,
+                                      gi_occ=w.gi_occ)
             out = out._replace(color=color)
         return out

@@ -246,7 +246,8 @@ class FrameLoop:
         on a reusing frame (``bench.py:382-399``)."""
         w, ec = self.world, self.ecfg
         if self.comp_cadence == 1:
-            return pipeline.gi_composite(color, gb, self.gi, w.sdf, ec)
+            return pipeline.gi_composite(color, gb, self.gi, w.sdf, ec,
+                                         gi_occ=w.gi_occ)
         if i % self.comp_cadence != 0:
             add = self.addend
             if rate == RATE_CHECKER:
@@ -255,6 +256,7 @@ class FrameLoop:
                 add = pipeline.quarter_select(add, phase)
             return torch.clamp(color + add, 0.0, 1.0)
         color, add = pipeline.gi_composite(color, gb, self.gi, w.sdf, ec,
+                                           gi_occ=w.gi_occ,
                                            return_addend=True)
         if rate == RATE_CHECKER:
             add = pipeline.checker_expand(add, phase)

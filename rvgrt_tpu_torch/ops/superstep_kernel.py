@@ -23,7 +23,10 @@ the loop.
 the table lies on a CUDA device and runs ``trace_plain`` (the host loop of
 ``superstep_plain``, the plain version of the whole trace) when it lies on
 the CPU.  ``fused_superstep`` is the same kernel with a budget of one
-superstep (the per-superstep check).  There is no fallback: a CUDA tensor
+superstep (the per-superstep check).  ``rcfg.slim_carry`` picks the
+kernel's slim variant, which recomputes tMax from the DDA-entry position
+and the cell at every superstep and neither loads nor stores the tMax
+words (``wavefront.recompute_tmax``).  There is no fallback: a CUDA tensor
 the kernel does not take raises.  ``launches`` counts kernel launches.
 """
 
@@ -38,11 +41,17 @@ launches = 0
 
 def superstep_plain(cfg, rcfg, table, dirs, s, sky_y=None):
     """One whole superstep in plain PyTorch: pregather, the clamped gather,
-    update.  Returns the next state dict (``s`` is not modified)."""
+    update (under ``rcfg.slim_carry`` with tMax recomputed from the state
+    and not stored).  Returns the next state dict (``s`` is not
+    modified)."""
     from rvgrt_tpu_torch.trace import wavefront as wf
 
     pre = wf._superstep_pregather(cfg, rcfg, dirs, s, sky_y=sky_y)
     word = table[pre["widx"].long()]
+    if rcfg.slim_carry:
+        return wf._superstep_update(cfg, rcfg, dirs, s, pre, word,
+                                    tm=wf.slim_tmax(s, dirs),
+                                    carry_tm=False)
     return wf._superstep_update(cfg, rcfg, dirs, s, pre, word)
 
 
@@ -150,5 +159,6 @@ def _launch(cfg, rcfg, table, dirs, s, sky_y, cap: int, check_every: int,
     _lib.check(fn(_params(cfg, rcfg), table.data_ptr(), sky_ptr,
                   *(s[k].data_ptr() for k in STATE_KEYS),
                   *(a.data_ptr() for a in dirs), n, cap, check_every,
-                  scratch.data_ptr(), _lib.stream_ptr(dev)), what)
+                  int(rcfg.slim_carry), scratch.data_ptr(),
+                  _lib.stream_ptr(dev)), what)
     return scratch[1]

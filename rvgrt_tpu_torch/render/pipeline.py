@@ -19,9 +19,12 @@ Every trace goes through ``wavefront.trace`` and so, on a GPU, kernel K1.
 The checker and quarter rates cut the primary grid before the primary
 trace (``checker_select`` / ``quarter_select``); their expands and valid
 masks are here too, and ``gi_composite(return_addend=True)`` hands out
-the added light for the composite-cadence reuse.  Not ported yet: the
-temporal start hints, the start/shadow overrides and the sharded slab
-halo.
+the added light for the composite-cadence reuse.  The temporal start
+hints (``temporal_start_hint`` / ``temporal_hints_from_prepass``: the
+previous frame's prepass distances as conservative starts) and the
+start/shadow overrides of ``render_slab`` are here; the fused cone table
+(``RenderConfig.gi_fused_cone``) reaches the GI gather through
+``gi_occ``.  Not ported yet: the sharded slab halo.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from rvgrt_tpu_torch.core import vecmath as vm
 from rvgrt_tpu_torch.render import shading
 from rvgrt_tpu_torch.trace import wavefront
 from rvgrt_tpu_torch.world import atlas as atlas_mod
+from rvgrt_tpu_torch.world import gi_grid
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -95,7 +99,7 @@ def _ray_dirs(cam: CameraArrays, width: int, height: int,
     dx = fo[0] + ndc_x * ri[0] + ndc_y * up[0]
     dy = fo[1] + ndc_x * ri[1] + ndc_y * up[1]
     dz = fo[2] + ndc_x * ri[2] + ndc_y * up[2]
-    inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    inv = 1.0 / vm.sqrt(dx * dx + dy * dy + dz * dz)
     return dx * inv, dy * inv, dz * inv
 
 
@@ -150,11 +154,104 @@ def _min_expand_axis(c, q: int, off: int, n_out: int, axis: int):
     return m.narrow(axis, 0, n_out)
 
 
-def _cascade_start(trace_fn, rcfg, cam: CameraArrays, hy0: int, hrows: int):
+_HINT_BIG = 1.0e9
+
+
+def temporal_start_hint(cam: CameraArrays, prev_cam: CameraArrays,
+                        prev_t: torch.Tensor, rcfg, out_h: int, out_w: int,
+                        *, pixel_center: bool = False,
+                        prev_pixel_center: bool = True, window: int = 2,
+                        bias: float | None = None, margin: float = 2.0,
+                        sky_start: float | None = None) -> torch.Tensor:
+    """Conservative trace-start distances from the previous frame's
+    hit-distance map ``prev_t`` (the JAX ``temporal_start_hint``: the world
+    is static, so last frame's visibility bounds this frame's).
+
+    Each current-grid ray direction is projected into the previous ray grid
+    through the previous camera's basis, the windowed min of ``prev_t`` is
+    read there, and the bound is tightened by the camera's translation and
+    ``bias``; reads closer than the parallax gate give 0 (no hint).  Sky
+    lanes (``prev_t >= _HINT_BIG / 2``) give ``sky_start`` under a camera
+    that did not move, else 0.  Returns an (out_h, out_w) float32 map (0 =
+    no hint), to be maximum-combined with the same-frame starts."""
+    bias_f = float(rcfg.dist_bias if bias is None else bias)
+    ph, pw = prev_t.shape
+    m = prev_t
+    for ax in (0, 1):
+        acc = m
+        for dlt in range(1, window + 1):
+            acc = torch.minimum(acc, _clamped_shift(m, dlt, ax))
+            acc = torch.minimum(acc, _clamped_shift(m, -dlt, ax))
+        m = acc
+    dx, dy, dz = _ray_dirs(cam, out_w, out_h, pixel_center=pixel_center)
+    fo, ri, up = prev_cam.forward, prev_cam.right, prev_cam.up
+    dfo = dx * fo[0] + dy * fo[1] + dz * fo[2]
+    ahead = dfo > 1e-6
+    dsafe = torch.where(ahead, dfo, 1.0)
+    ndc_x = (dx * ri[0] + dy * ri[1] + dz * ri[2]) / dsafe \
+        - prev_cam.jitter[0]
+    ndc_y = (dx * up[0] + dy * up[1] + dz * up[2]) / dsafe \
+        - prev_cam.jitter[1]
+    poff = 0.5 if prev_pixel_center else 0.0
+    fx = (ndc_x + 1.0) * (0.5 * pw) - poff
+    fy = (ndc_y + 1.0) * (0.5 * ph) - poff
+    inside = (ahead & (fx >= -0.5) & (fx <= pw - 0.5)
+              & (fy >= -0.5) & (fy <= ph - 0.5))
+    ix = torch.clamp(torch.round(fx).to(_I32), 0, pw - 1)
+    iy = torch.clamp(torch.round(fy).to(_I32), 0, ph - 1)
+    g = m[iy.long(), ix.long()]
+    dp = cam.pos - prev_cam.pos
+    delta = vm.sqrt(dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2])
+    # parallax gate: the window covers the warp's translation error only
+    # beyond this distance
+    t_gate = (margin * 0.5 * pw / max(window, 0.5)) * delta
+    sky = g >= _HINT_BIG * 0.5
+    hint = torch.clamp_min(g - delta - bias_f, 0.0)
+    hint = torch.where(g >= t_gate, hint, 0.0)
+    sky_hint = 0.0
+    if sky_start is not None:
+        sky_hint = torch.where(delta < 1e-5, float(sky_start), 0.0)
+    hint = torch.where(sky, sky_hint, hint)
+    return torch.where(inside, hint, 0.0)
+
+
+def temporal_hints_from_prepass(prev_half_dist: torch.Tensor,
+                                cam: CameraArrays, prev_cam: CameraArrays,
+                                rcfg, *, window: int = 2,
+                                bias: float | None = None,
+                                margin: float = 2.0,
+                                sky_start: float | None = None):
+    """(hint_half, hint_full) for this frame from the previous frame's
+    prepass distances (``FrameOutputs.half_dist``: biased, miss =
+    ``miss_distance``): the prepass grid's and the primary grid's
+    ``temporal_start_hint``."""
+    prev_t = prev_half_dist + rcfg.dist_bias
+    prev_t = torch.where(prev_t >= rcfg.miss_distance - 0.5, _HINT_BIG,
+                         prev_t)
+    kw = dict(window=window, bias=bias, margin=margin, sky_start=sky_start)
+    hint_half = temporal_start_hint(
+        cam, prev_cam, prev_t, rcfg, rcfg.half_height, rcfg.half_width,
+        pixel_center=True, **kw)
+    hint_full = temporal_start_hint(
+        cam, prev_cam, prev_t, rcfg, rcfg.height, rcfg.width,
+        pixel_center=False, **kw)
+    return hint_half, hint_full
+
+
+def _take_rows(full: torch.Tensor, y0: int, rows: int, n: int):
+    """Rows [y0, y0 + rows) of a full-frame map, edge-clamped like the ray
+    grids."""
+    iy = torch.clamp(y0 + torch.arange(rows, device=full.device), 0, n - 1)
+    return full[iy]
+
+
+def _cascade_start(trace_fn, rcfg, cam: CameraArrays, hy0: int, hrows: int,
+                   hint_rows=None):
     """Start distances for the prepass from an even coarser trace: rays at
-    1/prepass_cascade of the prepass grid trace from scratch, and every
-    prepass ray starts at (min over the surrounding coarse samples) -
-    dist_bias."""
+    1/prepass_cascade of the prepass grid trace from scratch (or from
+    ``hint_rows``, this slab's rows of a temporal start hint, where it is
+    larger), and every prepass ray starts at (min over the surrounding
+    coarse samples) - dist_bias."""
     dev = cam.pos.device
     hw = rcfg.half_width
     q = rcfg.prepass_cascade
@@ -177,10 +274,13 @@ def _cascade_start(trace_fn, rcfg, cam: CameraArrays, hy0: int, hrows: int):
     dx = cam.forward[0] + ndc_x * cam.right[0] + ndc_y * cam.up[0]
     dy = cam.forward[1] + ndc_x * cam.right[1] + ndc_y * cam.up[1]
     dz = cam.forward[2] + ndc_x * cam.right[2] + ndc_y * cam.up[2]
-    inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
+    inv = 1.0 / vm.sqrt(dx * dx + dy * dy + dz * dz)
     zeros = torch.zeros(crows, ccols, dtype=_F32, device=dev)
+    cstart = zeros
+    if hint_rows is not None:
+        cstart = torch.maximum(cstart, hint_rows[ly.long()][:, lx.long()])
     res = trace_fn(cam.pos[0] + zeros, cam.pos[1], cam.pos[2],
-                   dx * inv, dy * inv, dz * inv, zeros)
+                   dx * inv, dy * inv, dz * inv, cstart)
     dist = torch.where(res.hit, _distance(res, cam), rcfg.miss_distance)
     m = _min_expand_axis(dist, q, off, hrows, 0)
     m = _min_expand_axis(m, q, off, hw, 1)
@@ -196,11 +296,15 @@ def _distance(res, cam: CameraArrays):
 
 def half_res_prepass(bits, sdf, cfg, rcfg, lcfg, cam: CameraArrays,
                      hy0: int = 0, hrows: int | None = None, table=None,
-                     sky_y=None, trace_fn=None, want_shadow: bool = True):
+                     sky_y=None, trace_fn=None, start_hint=None,
+                     want_shadow: bool = True):
     """distApproximationKernel (StateRender.cu:255-286): distance - bias
     (miss -> 300) and a shadow factor at prepass resolution, for the
-    (edge-clamped) row slab ``hy0 .. hy0 + hrows``.  ``want_shadow=False``
-    (decoupled shadow sites) skips the shadow estimate."""
+    (edge-clamped) row slab ``hy0 .. hy0 + hrows``.  ``start_hint``: an
+    optional full-frame (half_height, half_width) conservative start map
+    (``temporal_start_hint``), maximum-combined with the cascade start.
+    ``want_shadow=False`` (decoupled shadow sites) skips the shadow
+    estimate."""
     if trace_fn is None:
         trace_fn = make_trace_fn(bits, sdf, cfg, rcfg, table=table,
                                  sky_y=sky_y)
@@ -208,7 +312,13 @@ def half_res_prepass(bits, sdf, cfg, rcfg, lcfg, cam: CameraArrays,
     hrows = hh if hrows is None else hrows
     dx, dy, dz = _ray_dirs(cam, hw, hh, pixel_center=True, y0=hy0,
                            rows=hrows)
-    start = _cascade_start(trace_fn, rcfg, cam, hy0, hrows)
+    hint_rows = None
+    if start_hint is not None:
+        hint_rows = _take_rows(start_hint, hy0, hrows, hh)
+    start = _cascade_start(trace_fn, rcfg, cam, hy0, hrows,
+                           hint_rows=hint_rows)
+    if hint_rows is not None:
+        start = torch.maximum(start, hint_rows)
     res = trace_fn(cam.pos[0] + torch.zeros_like(dx), cam.pos[1],
                    cam.pos[2], dx, dy, dz, start)
     dist = torch.where(res.hit, _distance(res, cam), rcfg.miss_distance)
@@ -360,10 +470,17 @@ def _gi_joint_upsample(cir, cig, cib, c_t, c_code, c_valid,
     return out[0], out[1], out[2]
 
 
-def gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg):
+def gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg, gi_occ=None):
     """Per-pixel indirect light for a traced frame: cones march every
     ``gi_res_divisor``-th pixel and the result is geometry-aware
-    upsampled."""
+    upsampled.  With ``rcfg.gi_fused_cone`` each cone step reads one word
+    of the fused cone table (radiance | the occlusion mip ``gi_occ``, built
+    from ``sdf`` when None)."""
+    cone_tbl = None
+    if rcfg.gi_fused_cone:
+        occ = gi_occ if gi_occ is not None \
+            else gi_grid.build_occlusion(sdf, cfg)
+        cone_tbl = gi_grid.make_cone_table(gi, occ)
     h, w = res.hit.shape
     d = rcfg.gi_res_divisor
     while d > 1 and (h % d or w % d):
@@ -371,7 +488,8 @@ def gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg):
     hpos = (res.px, res.py, res.pz)
     normal = (res.nx, res.ny, res.nz)
     if d <= 1:
-        return shading.gather_gi(hpos, normal, gi, sdf, cfg, lcfg)
+        return shading.gather_gi(hpos, normal, gi, sdf, cfg, lcfg,
+                                 cone_table=cone_tbl)
     off = d // 2
 
     def sub(a):
@@ -379,7 +497,7 @@ def gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg):
 
     cir, cig, cib = shading.gather_gi(
         tuple(sub(a) for a in hpos), tuple(sub(a) for a in normal),
-        gi, sdf, cfg, lcfg)
+        gi, sdf, cfg, lcfg, cone_table=cone_tbl)
     code = _normal_code(res.nx, res.ny, res.nz)
     return _gi_joint_upsample(cir, cig, cib, sub(res.t), sub(code),
                               sub(res.hit), res.t, code, d,
@@ -464,11 +582,24 @@ def checker_valid_mask(height: int, width: int, parity: int,
 
 def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
                 ecfg: EngineConfig, y0: int, slab_h: int,
-                include_gi: bool = True, sky_y=None, table=None,
-                return_gbuffer: bool = False, trace_fn=None,
+                include_gi: bool = True, gi_occ=None, sky_y=None,
+                table=None, return_gbuffer: bool = False, trace_fn=None,
                 checker_parity: int | None = None,
-                quarter_phase: int | None = None):
+                quarter_phase: int | None = None, hint_half=None,
+                hint_full=None, start_override=None,
+                shadow_override=None):
     """Render rows [y0, y0 + slab_h) of the frame.
+
+    ``hint_half`` / ``hint_full``: optional full-frame conservative start
+    maps from the previous frame (``temporal_hints_from_prepass``, at the
+    prepass and the primary grid), maximum-combined with the same-frame
+    starts.  ``start_override`` / ``shadow_override``: precomputed
+    full-resolution starts / shadow factors for this slab; the prepass is
+    skipped and the returned ``half_dist`` / ``half_shadow`` are
+    placeholders.  A start override without a shadow override needs
+    decoupled shadow sites (else every pixel would be lit by the
+    placeholder): ``ValueError``.  ``gi_occ``: the world's cone-occlusion
+    mip for ``gi_fused_cone`` (built from ``sdf`` when None).
 
     ``checker_parity`` (0/1): trace only the pixels with ``(x + y +
     parity) & 1 == 0``; ``quarter_phase`` (0-3): only one pixel of each 2x2
@@ -493,18 +624,42 @@ def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
     hneed = slab_h // pd + 2
     t = max(rcfg.trace_tile_rows, 1)
     hrows = -(-hneed // t) * t
-    shadow_decoupled = lcfg.soft_shadows and rcfg.shadow_site_divisor > 0
-    half_dist, half_shadow = half_res_prepass(
-        bits, sdf, cfg, rcfg, lcfg, cam, hy0=hy0, hrows=hrows,
-        trace_fn=trace_fn, sky_y=sky_y, want_shadow=not shadow_decoupled)
+    shadow_decoupled = (lcfg.soft_shadows and rcfg.shadow_site_divisor > 0
+                        and shadow_override is None)
+    if start_override is not None and shadow_override is None \
+            and not shadow_decoupled:
+        raise ValueError(
+            "start_override without shadow_override requires decoupled "
+            "shadow sites (lighting.soft_shadows and "
+            "render.shadow_site_divisor > 0); pass shadow_override or "
+            "decouple the shadows")
+    if start_override is not None:
+        # precomputed starts: no prepass, placeholder half buffers
+        half_dist = torch.zeros(hneed, rcfg.half_width, dtype=_F32,
+                                device=cam.pos.device)
+        half_shadow = torch.ones_like(half_dist)
+    else:
+        half_dist, half_shadow = half_res_prepass(
+            bits, sdf, cfg, rcfg, lcfg, cam, hy0=hy0, hrows=hrows,
+            trace_fn=trace_fn, sky_y=sky_y, start_hint=hint_half,
+            want_shadow=not shadow_decoupled)
     half_dist = half_dist[:hneed]
     half_shadow = half_shadow[:hneed]
-    start_dist = _min_dist_upsample_slab(half_dist, slab_h, d=pd)
+    if start_override is not None:
+        start_dist = start_override
+    else:
+        start_dist = _min_dist_upsample_slab(half_dist, slab_h, d=pd)
     # the conservative start is clamped at the camera (see the JAX
     # render_slab for why)
     start_dist = torch.clamp_min(start_dist, 0.0)
-    shadow_full = (None if shadow_decoupled else
-                   _bilinear_upsample_slab(half_shadow, slab_h, d=pd))
+    if hint_full is not None:
+        start_dist = torch.maximum(
+            start_dist, _take_rows(hint_full, y0, slab_h, rcfg.height))
+    if shadow_override is not None:
+        shadow_full = shadow_override
+    else:
+        shadow_full = (None if shadow_decoupled else
+                       _bilinear_upsample_slab(half_shadow, slab_h, d=pd))
 
     # ---- 3: full-res primary ----
     dx, dy, dz = _ray_dirs(cam, w, rcfg.height, pixel_center=False,
@@ -580,7 +735,8 @@ def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
     direct = vm.scale(albedo, diffuse * shadow_full)
     solid_col = direct
     if include_gi:
-        ir, ig, ib = gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg)
+        ir, ig, ib = gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg,
+                                     gi_occ=gi_occ)
         indirect = vm.mul((ir, ig, ib),
                           vm.scale(albedo, vm.f32(lcfg.gi_strength)))
         ambient = vm.mul(shading.sample_sky(normal, lcfg),
@@ -638,21 +794,25 @@ def render_slab(bits, sdf, gi, atlas, cam: CameraArrays,
 
 
 def render_frame(bits, sdf, gi, atlas, cam: CameraArrays,
-                 ecfg: EngineConfig, include_gi: bool = True,
+                 ecfg: EngineConfig, include_gi: bool = True, gi_occ=None,
                  sky_y=None, table=None, return_gbuffer: bool = False,
                  trace_fn=None, checker_parity: int | None = None,
-                 quarter_phase: int | None = None):
+                 quarter_phase: int | None = None, hint_half=None,
+                 hint_full=None, start_override=None,
+                 shadow_override=None):
     """Full frame = one slab covering every row."""
     return render_slab(bits, sdf, gi, atlas, cam, ecfg, y0=0,
                        slab_h=ecfg.render.height, include_gi=include_gi,
-                       sky_y=sky_y, table=table,
+                       gi_occ=gi_occ, sky_y=sky_y, table=table,
                        return_gbuffer=return_gbuffer, trace_fn=trace_fn,
                        checker_parity=checker_parity,
-                       quarter_phase=quarter_phase)
+                       quarter_phase=quarter_phase, hint_half=hint_half,
+                       hint_full=hint_full, start_override=start_override,
+                       shadow_override=shadow_override)
 
 
 def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig,
-                 return_addend: bool = False):
+                 gi_occ=None, return_addend: bool = False):
     """Add cone-traced indirect + sky ambient onto a GI-less base color
     (the split-dispatch half of the GI frame): the added light is scaled by
     the fog transmittance the base was composited with.  With
@@ -660,7 +820,8 @@ def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig,
     re-adding to a later frame's base (``bench.py``'s composite cadence:
     indirect light is low-frequency and geometry-attached)."""
     cfg, rcfg, lcfg = ecfg.world, ecfg.render, ecfg.lighting
-    ir, ig, ib = gather_gi_image(gb, gi, sdf, cfg, rcfg, lcfg)
+    ir, ig, ib = gather_gi_image(gb, gi, sdf, cfg, rcfg, lcfg,
+                                 gi_occ=gi_occ)
     albedo = (gb.albedo_r, gb.albedo_g, gb.albedo_b)
     normal = (gb.nx, gb.ny, gb.nz)
     indirect = vm.mul((ir, ig, ib),

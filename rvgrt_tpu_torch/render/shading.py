@@ -3,8 +3,9 @@
 The port of ``rvgrt_tpu/render/shading.py``: the reference's per-pixel
 shading (``computeColor``, ``StateRender.cu:33-146``) and cone marcher
 (``traceCone``, ``raytracing_functions.cu:212-273``) as masked SoA
-arithmetic over whole pixel buffers.  Only the two-gather cone march is
-ported (the fused cone table of ``gi_fused_cone`` is off on the main path).
+arithmetic over whole pixel buffers.  A cone step reads the SDF and the
+GI grid (two gathers), or one word of the fused cone table
+(``gi_grid.make_cone_table``, ``RenderConfig.gi_fused_cone``).
 """
 
 from __future__ import annotations
@@ -44,10 +45,12 @@ def max_cone_steps(lcfg: LightingConfig) -> int:
 
 
 def trace_cone(px, py, pz, dx, dy, dz, gi, sdf, cfg: WorldConfig,
-               lcfg: LightingConfig, steps: int | None = None):
+               lcfg: LightingConfig, steps: int | None = None,
+               cone_table=None):
     """Front-to-back cone march through the GI grid with SDF occlusion: a
     fixed trip count with an activity mask; one SDF gather + one GI gather
-    per step."""
+    per step, or one gather of ``cone_table`` (radiance + the occlusion
+    mip; its alpha reads as 1)."""
     if steps is None:
         steps = max_cone_steps(lcfg)
     shape = torch.broadcast_shapes(px.shape, dx.shape)
@@ -63,12 +66,17 @@ def trace_cone(px, py, pz, dx, dy, dz, gi, sdf, cfg: WorldConfig,
         cx = px + dx * cur
         cy = py + dy * cur
         cz = pz + dz * cur
-        vx = torch.floor(cx).to(_I32)
-        vy = torch.floor(cy).to(_I32)
-        vz = torch.floor(cz).to(_I32)
-        scene_dist = sdf_mod.sample_sdf_at_voxel(sdf, cfg, vx, vy, vz)\
-            .to(_F32) * float(cfg.sdf_coarseness)
-        r, g, b, a, ok = gi_grid.sample_at_world(gi, cfg, cx, cy, cz)
+        if cone_table is not None:
+            r, g, b, scene_dist, ok = gi_grid.sample_cone_table(
+                cone_table, cfg, cx, cy, cz)
+            a = torch.ones_like(r)
+        else:
+            vx = torch.floor(cx).to(_I32)
+            vy = torch.floor(cy).to(_I32)
+            vz = torch.floor(cz).to(_I32)
+            scene_dist = sdf_mod.sample_sdf_at_voxel(sdf, cfg, vx, vy, vz)\
+                .to(_F32) * float(cfg.sdf_coarseness)
+            r, g, b, a, ok = gi_grid.sample_at_world(gi, cfg, cx, cy, cz)
         cone_w = cur * tan_angle
         occluded = active & (scene_dist < cone_w)
         acc_a = torch.where(occluded, 1.0, acc_a)
@@ -157,14 +165,15 @@ def cone_directions(n):
 
 
 def gather_gi(hit_pos, normal, gi, sdf, cfg: WorldConfig,
-              lcfg: LightingConfig):
+              lcfg: LightingConfig, cone_table=None):
     """6-cone VCT gather, averaged (StateRender.cu:101-121).  Returns the
-    *unmodulated* indirect light."""
+    *unmodulated* indirect light.  ``cone_table``: see ``trace_cone``."""
     dirs = cone_directions(normal)
     tr = tg = tb = None
     for d in dirs:
         r, g, b = trace_cone(hit_pos[0], hit_pos[1], hit_pos[2],
-                             d[0], d[1], d[2], gi, sdf, cfg, lcfg)
+                             d[0], d[1], d[2], gi, sdf, cfg, lcfg,
+                             cone_table=cone_table)
         tr = r if tr is None else tr + r
         tg = g if tg is None else tg + g
         tb = b if tb is None else tb + b

@@ -237,3 +237,19 @@ class Character:
         """
         jx, jy = self.jitter_px
         return (jx * 2.0 / self.render_width, jy * 2.0 / self.render_height)
+
+
+def orbit_path(n_frames: int, center: np.ndarray, radius: float,
+               height: float, look_target: np.ndarray) -> list[Camera]:
+    """Deterministic replayable camera path: horizontal orbit."""
+    cams = []
+    for i in range(n_frames):
+        ang = 2.0 * math.pi * i / max(n_frames, 1)
+        pos = np.array([center[0] + radius * math.cos(ang), height,
+                        center[2] + radius * math.sin(ang)], F32)
+        fwd = _norm(look_target - pos)
+        world_up = np.array([0.0, 1.0, 0.0], F32)
+        right = _norm(np.cross(fwd, world_up))
+        up = _norm(np.cross(fwd, right))
+        cams.append(Camera(pos=pos, forward=fwd, right=right, up=up))
+    return cams

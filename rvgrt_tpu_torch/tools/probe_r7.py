@@ -57,9 +57,9 @@ rung of its ladder is bound by something else:
    each bit for bit against the plain version.
 
 Sections 3-5 of the TPU probe (slim carry, the checkerboard shape,
-``shard_map`` at mesh 1) need ``RenderConfig.slim_carry`` and the
-``parallel/`` package, which the port does not have yet; they are skipped,
-and the tool says so.
+``shard_map`` at mesh 1) are skipped, and the tool says so: they time the
+tracer inside ``parallel/``'s mesh, which the port does not have yet
+(slim carry itself is K1's slim variant, timed by ``chip_smoke.py``).
 
 Each row: the kernel's device time (``ms``: CUDA-graph replays of 10
 calls), ``event_ms`` (the Python call, host included, CUDA events), the
@@ -95,8 +95,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 SECTOR = 32  # bytes the card moves for one random word
 SKIPPED = ("sections 3-5 of scripts/probe_r7.py (slim carry, the "
-           "checkerboard shape, shard_map at mesh 1) are skipped: they need "
-           "RenderConfig.slim_carry and parallel/, which are not ported")
+           "checkerboard shape, shard_map at mesh 1) are skipped: they time "
+           "the tracer inside parallel/'s mesh, which is not ported")
 
 
 def log(*a) -> None:

@@ -40,7 +40,16 @@ trace (one K1 launch), and nothing is read back: the compaction is a
 cumulative sum and a sorted search on the device, its size set by N on
 the host.
 
-Not ported yet: the volume-sharded ``z_edges`` mode and ``slim_carry``.
+Slim carry (``RenderConfig.slim_carry``, ``bench.py``'s ``BENCH_SLIM=1``):
+tMax is not carried from superstep to superstep.  Each superstep
+recomputes it from the frozen DDA-entry position and the current cell
+(``recompute_tmax``), and so does the payload; the tMax state words are
+neither read nor written.  The recomputed value differs from the carried
+one by rounding, so the two modes give different hits, as in the JAX
+package; K1 has a compile-time variant for it.
+
+Not ported yet: the volume-sharded ``z_edges`` mode (``trace`` raises on
+it).
 """
 
 from __future__ import annotations
@@ -221,12 +230,35 @@ def _superstep_pregather(cfg: WorldConfig, rcfg: RenderConfig, dirs, s,
                 bytepos=bytepos, widx_bit=widx_bit)
 
 
+def recompute_tmax(px, ix, st, dd):
+    """tMax of the current DDA cell from the frozen DDA-entry position
+    (slim carry): the distance along the ray to the cell's next boundary on
+    one axis.  A zero-direction lane whose entry sits exactly on a boundary
+    would recompute 0 forever, so it is parked at ``1e10`` (the JAX
+    ``recompute_tmax``, same order of operations)."""
+    ixf = ix.to(_F32)
+    tm = torch.where(st > 0, ixf + 1.0 - px, px - ixf) * dd
+    return torch.where((st == 0) & (tm == 0.0), 1e10, tm)
+
+
+def slim_tmax(s, dirs):
+    """(tmx, tmy, tmz) recomputed from the state ``s`` (slim carry)."""
+    ddx, ddy, ddz, stx, sty, stz = dirs[3:]
+    return (recompute_tmax(s["px"], s["ix"], stx, ddx),
+            recompute_tmax(s["py"], s["iy"], sty, ddy),
+            recompute_tmax(s["pz"], s["iz"], stz, ddz))
+
+
 def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
-                      word):
+                      word, tm=None, carry_tm: bool = True):
     """Superstep back half: the masked state machine over the gathered
-    ``word`` (sphere march / SDF probe+jump / DDA brick substeps), the
-    ``carry_tm=True`` form of the JAX function.  Returns the next state."""
+    ``word`` (sphere march / SDF probe+jump / DDA brick substeps).  ``tm``
+    is (tmx, tmy, tmz), the state's carried words when None;
+    ``carry_tm=False`` (slim carry) leaves the tMax words of the state as
+    they are.  Returns the next state."""
     dx, dy, dz, ddx, ddy, ddz, stx, sty, stz = dirs
+    if tm is None:
+        tm = (s["tmx"], s["tmy"], s["tmz"])
     size_x, size_y, size_z = cfg.size_x, cfg.size_y, cfg.size_z
     probe_mask = rcfg.sdf_probe_interval - 1
     flags = pre["flags"]
@@ -245,12 +277,16 @@ def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
         sd["ix"] = torch.where(lanes, fx.to(_I32), sd["ix"])
         sd["iy"] = torch.where(lanes, fy.to(_I32), sd["iy"])
         sd["iz"] = torch.where(lanes, fz.to(_I32), sd["iz"])
-        ntmx = torch.where(stx > 0, fx + 1.0 - sd["px"], sd["px"] - fx) * ddx
-        ntmy = torch.where(sty > 0, fy + 1.0 - sd["py"], sd["py"] - fy) * ddy
-        ntmz = torch.where(stz > 0, fz + 1.0 - sd["pz"], sd["pz"] - fz) * ddz
-        sd["tmx"] = torch.where(lanes, ntmx, sd["tmx"])
-        sd["tmy"] = torch.where(lanes, ntmy, sd["tmy"])
-        sd["tmz"] = torch.where(lanes, ntmz, sd["tmz"])
+        if carry_tm:
+            ntmx = torch.where(stx > 0, fx + 1.0 - sd["px"],
+                               sd["px"] - fx) * ddx
+            ntmy = torch.where(sty > 0, fy + 1.0 - sd["py"],
+                               sd["py"] - fy) * ddy
+            ntmz = torch.where(stz > 0, fz + 1.0 - sd["pz"],
+                               sd["pz"] - fz) * ddz
+            sd["tmx"] = torch.where(lanes, ntmx, sd["tmx"])
+            sd["tmy"] = torch.where(lanes, ntmy, sd["tmy"])
+            sd["tmz"] = torch.where(lanes, ntmz, sd["tmz"])
         nf = _set(fl, _PH_SH, _PH_W, PHASE_DDA)
         nf = _set(nf, _MK_SH, _MK_W, MASK_NONE)
         nf = _set(nf, _DD_SH, _DD_W, 0)
@@ -315,7 +351,7 @@ def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
     # 4x2x4 brick; a lane stops on hit, OOB, budget, probe boundary or
     # leaving the brick
     l_ix, l_iy, l_iz = s["ix"], s["iy"], s["iz"]
-    l_tmx, l_tmy, l_tmz = s["tmx"], s["tmy"], s["tmz"]
+    l_tmx, l_tmy, l_tmz = tm
     l_mask = _get(flags, _MK_SH, _MK_W)
     l_dda = dda_i
     l_its = ns["its"]
@@ -359,9 +395,10 @@ def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
     ns["ix"] = torch.where(action_turn, l_ix, ns["ix"])
     ns["iy"] = torch.where(action_turn, l_iy, ns["iy"])
     ns["iz"] = torch.where(action_turn, l_iz, ns["iz"])
-    ns["tmx"] = torch.where(action_turn, l_tmx, ns["tmx"])
-    ns["tmy"] = torch.where(action_turn, l_tmy, ns["tmy"])
-    ns["tmz"] = torch.where(action_turn, l_tmz, ns["tmz"])
+    if carry_tm:
+        ns["tmx"] = torch.where(action_turn, l_tmx, ns["tmx"])
+        ns["tmy"] = torch.where(action_turn, l_tmy, ns["tmy"])
+        ns["tmz"] = torch.where(action_turn, l_tmz, ns["tmz"])
     ns["its"] = l_its
     nflags = torch.where(action_turn,
                          _set(_set(nflags, _MK_SH, _MK_W, l_mask),
@@ -382,7 +419,7 @@ def any_live(flags: torch.Tensor) -> bool:
 def trace(bits, sdf, cfg: WorldConfig, rcfg: RenderConfig,
           ox, oy, oz, dx, dy, dz, t_start,
           quantize_start_fp16: bool = True, table=None,
-          sky_y=None) -> TraceResult:
+          sky_y=None, z_edges=None) -> TraceResult:
     """Trace rays (any common broadcast shape) through the world.
 
     ``t_start`` mirrors the reference's ``half distance`` parameter: the
@@ -392,8 +429,13 @@ def trace(bits, sdf, cfg: WorldConfig, rcfg: RenderConfig,
     or above it retire at once (image-identical, fewer ``its``).
     ``table``: the combined gather table (built from bits/sdf if None).
     With ``rcfg.straggler_budget > 0`` and at least ``RESPITE_MIN_RAYS``
-    rays the trace runs in two phases (``_trace_two_phase``).
+    rays the trace runs in two phases (``_trace_two_phase``), both with
+    ``rcfg.slim_carry``.  ``z_edges`` (the volume-sharded mode) is not
+    ported: any value but None raises ``NotImplementedError``.
     """
+    if z_edges is not None:
+        raise NotImplementedError(
+            "wavefront.trace: the volume-sharded z_edges mode is not ported")
     if table is None:
         table = make_trace_table(bits, sdf, cfg)
     dev = table.device
@@ -418,7 +460,8 @@ def _trace_impl(table, cfg: WorldConfig, rcfg: RenderConfig,
     s, dirs = start_state(cfg, ox, oy, oz, dx, dy, dz, t0,
                           quantize_start_fp16, sky_y=sky_y)
     steps = run_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y)
-    return _payload(s, dirs, ox, oy, oz, steps, resume=resume)
+    return _payload(s, dirs, ox, oy, oz, steps, resume=resume,
+                    slim=rcfg.slim_carry)
 
 
 def respite_slots(n: int, cap_frac: float) -> int:
@@ -567,9 +610,10 @@ def run_supersteps(cfg: WorldConfig, rcfg: RenderConfig, table, dirs, s,
     return steps
 
 
-def _payload(s, dirs, ox, oy, oz, steps, resume: bool = False
-             ) -> TraceResult:
-    """The hit payload reconstructed from the final state.  ``resume``
+def _payload(s, dirs, ox, oy, oz, steps, resume: bool = False,
+             slim: bool = False) -> TraceResult:
+    """The hit payload reconstructed from the final state, with tMax
+    recomputed from the state under ``slim`` carry.  ``resume``
     (phase 1 of the respite): a lane still in SPHERE or DDA keeps a
     position, its resume point - a sphere lane's current position, a DDA
     lane's current cell entry point - with ``exit_dir`` 2 or 3."""
@@ -582,10 +626,12 @@ def _payload(s, dirs, ox, oy, oz, steps, resume: bool = False
     stxf = stx.to(_F32)
     styf = sty.to(_F32)
     stzf = stz.to(_F32)
+    tmx, tmy, tmz = (slim_tmax(s, dirs) if slim
+                     else (s["tmx"], s["tmy"], s["tmz"]))
     t_hit = torch.where(
-        m == MASK_X, s["tmx"] - ddx,
-        torch.where(m == MASK_Y, s["tmy"] - ddy,
-                    torch.where(m == MASK_Z, s["tmz"] - ddz, 0.0)))
+        m == MASK_X, tmx - ddx,
+        torch.where(m == MASK_Y, tmy - ddy,
+                    torch.where(m == MASK_Z, tmz - ddz, 0.0)))
     hx = s["px"] + t_hit * dx
     hy = s["py"] + t_hit * dy
     hz = s["pz"] + t_hit * dz

@@ -7,11 +7,20 @@ thresholded into 8 Minecraft-ish tiles, point-sampled with the reference's
 (v, u) coordinate swap.  The atlas is a (256*256,) tensor of packed u32
 words, so a texel fetch is one gather + shift-unpack.
 
-Only the procedural atlas is ported; loading the reference PNG waits for a
-later slice, so ``default_atlas`` is the procedural one.
+``default_atlas`` loads the reference's texture pack (``REFERENCE_PNG``,
+``resources/texturepack.png`` in this repository) when that file exists
+and decodes, as the JAX package does with its own path, and builds the
+procedural look-alike otherwise.  ``load_png`` decodes with ``zlib`` and
+``struct`` (``decode_png``: 8-bit RGB or RGBA, not interlaced, all five
+row filters), as Pillow's ``convert("RGB")`` reads those two types.
 """
 
 from __future__ import annotations
+
+import os
+import struct
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -81,8 +90,108 @@ def procedural_atlas(device=None) -> torch.Tensor:
     return pack_rgba8(flat[:, 0], flat[:, 1], flat[:, 2])
 
 
+#: the reference's own texture pack (embedded into its binary by
+#: ``embed.py``), looked for inside this repository only, so that nothing
+#: outside the checkout changes which atlas a world gets.  The pack is not
+#: committed: until it is, ``default_atlas`` builds the procedural atlas.
+#: (The JAX package names the pack by an absolute path of its own.)
+REFERENCE_PNG = str(Path(__file__).resolve().parents[2] / "resources"
+                    / "texturepack.png")
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit RGB or RGBA, non-interlaced PNG as an (H, W, 3 or 4) uint8
+    array; every row filter (None, Sub, Up, Average, Paeth) is undone.
+    Any other colour type, bit depth or interlace raises ``ValueError``."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, ihdr, idat = 8, None, []
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    chans = {2: 3, 6: 4}.get(ctype)
+    if chans is None or depth != 8 or interlace != 0:
+        raise ValueError(f"unsupported PNG: colour type {ctype}, bit depth "
+                         f"{depth}, interlace {interlace} (8-bit RGB or "
+                         f"RGBA, not interlaced, only)")
+    raw = zlib.decompress(b"".join(idat))
+    stride = w * chans
+    if len(raw) != h * (stride + 1):
+        raise ValueError("PNG data of the wrong length")
+    out = np.zeros((h, stride), np.uint8)
+    prev = bytes(stride)
+    for y in range(h):
+        f = raw[y * (stride + 1)]
+        row = raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)]
+        if f == 0:
+            cur = np.frombuffer(row, np.uint8)
+        elif f == 1:  # Sub: a running sum per channel
+            r = np.frombuffer(row, np.uint8).reshape(w, chans)
+            cur = (np.cumsum(r, axis=0, dtype=np.int64) & 0xFF).reshape(-1)
+        elif f == 2:  # Up
+            cur = np.frombuffer(row, np.uint8) + np.frombuffer(prev,
+                                                               np.uint8)
+        elif f in (3, 4):  # Average, Paeth: each byte needs its left
+            line = bytearray(stride)
+            for i in range(stride):
+                a = line[i - chans] if i >= chans else 0
+                b = prev[i]
+                if f == 3:
+                    pred = (a + b) >> 1
+                else:
+                    pred = _paeth(a, b, prev[i - chans] if i >= chans
+                                  else 0)
+                line[i] = (row[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(line), np.uint8)
+        else:
+            raise ValueError(f"PNG row filter {f} unknown")
+        out[y] = cur
+        prev = out[y].tobytes()
+    return out.reshape(h, w, chans)
+
+
+def load_png(path: str, device=None) -> torch.Tensor:
+    """A 256x256 texture pack from disk (8-bit RGB or RGBA; alpha dropped),
+    as the JAX ``load_png`` reads it: scaled by 1/255 in float32, stored
+    transposed (so ``sample_atlas``'s (u, v) indexing matches the
+    reference's swapped ``tex2D(texObj, uv.y, uv.x)``) and packed."""
+    with open(path, "rb") as f:
+        rgb = decode_png(f.read())[..., :3]
+    img = rgb.astype(np.float32) / np.float32(255.0)
+    assert img.shape[:2] == (ATLAS_SIZE, ATLAS_SIZE), img.shape
+    img = np.ascontiguousarray(np.transpose(img, (1, 0, 2)).reshape(-1, 3))
+    flat = torch.from_numpy(img).to(resolve_device(device))
+    return pack_rgba8(flat[:, 0], flat[:, 1], flat[:, 2])
+
+
 def default_atlas(device=None) -> torch.Tensor:
-    """The procedural look-alike atlas (deterministic)."""
+    """The reference's texture pack (``REFERENCE_PNG``) when it exists and
+    loads, else the procedural look-alike (both deterministic)."""
+    if os.path.exists(REFERENCE_PNG):
+        try:
+            return load_png(REFERENCE_PNG, device)
+        except Exception:
+            pass
     return procedural_atlas(device)
 
 

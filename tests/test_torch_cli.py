@@ -10,9 +10,12 @@ two ``Engine.step`` frames, the native PNG sink built from
 ``native/framesink.cpp`` - writes two PNGs whose pixels are the engine's
 frames quantised (decoded here with ``zlib``).  With ``--upscale fresh``
 and ``--upscale checkpoints/upscaler_r2.pkl`` the PNGs are the learned
-upscaler's 3x frames, each over the previous one as its history.
-Everything JAX does here is integer or host work, so it runs in this
-process.
+upscaler's 3x frames, each over the previous one as its history.  With
+``--upscale temporal`` they are the accumulator's 3x frames with its
+default ``bilinear_shift`` taps, as the JAX CLI runs it: the engine's
+frames through JAX's ``temporal_upscale`` in a child process without FMA
+contraction (``ref_temporal``) give the same PNGs.  Everything else JAX
+does here is integer or host work, so it runs in this process.
 """
 
 from __future__ import annotations
@@ -164,6 +167,26 @@ def test_cli_runs_the_learned_upscaler(upscale, tmp_path):
         want = cli.to_u8(history).numpy()
         assert want.shape == (288, 480, 3) and want.std() > 1.0
         np.testing.assert_array_equal(read_png(f), want)
+
+
+def test_cli_temporal_equals_jax_accumulator(tmp_path):
+    """``--upscale temporal`` writes the accumulator's 3x frames with the
+    JAX CLI's taps (``bilinear_shift``, the accumulator's default): JAX's
+    ``temporal_upscale`` on the engine's frames and jitters gives the same
+    PNGs."""
+    got = _run_cli(tmp_path, "--upscale", "temporal")
+    assert got["stats"]["written"] == FRAMES
+    frames = [dict(color=o.color.numpy(), motion=o.motion.numpy(),
+                   depth=o.depth.numpy(), jitter=np.asarray(j, np.float32))
+              for o, j in zip(got["frames"], got["jitters"])]
+    want = ref.run([("ref_temporal", dict(frames=frames,
+                                          taps="bilinear_shift"))])[0]
+    files = sorted(tmp_path.glob("*.png"))
+    assert len(files) == FRAMES
+    for f, w in zip(files, want):
+        exp = (np.clip(w, 0, 1) * 255).astype(np.uint8)
+        assert exp.shape == (288, 480, 3) and exp.std() > 1.0
+        np.testing.assert_array_equal(read_png(f), exp)
 
 
 def test_frame_time_averager_equals_jax(monkeypatch):

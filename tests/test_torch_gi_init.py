@@ -107,8 +107,26 @@ def test_init_gi_chunked_equals_whole_init(inits, chunk):
 
 
 def test_build_world_still_refuses_the_fused_cone():
+    """NOTE: this test checks the opposite of its name.  The name is kept
+    from when the port refused ``gi_fused_cone`` (a test whose check
+    changes keeps its name, so its record carries on).  Now that the
+    fused cone table is ported, ``build_world`` with the flag builds the
+    world's cone occlusion mip (``World.gi_occ``), and without it builds
+    none.  ``tests/test_torch_cone.py`` holds ``gi_occ`` against JAX's."""
+    from rvgrt_tpu_torch.world import gi_grid
+
     ecfg = ref.make_ecfg(tcfg, SPEC)
-    ecfg = dataclasses.replace(ecfg, render=dataclasses.replace(
+    fused = dataclasses.replace(ecfg, render=dataclasses.replace(
         ecfg.render, gi_fused_cone=True))
-    with pytest.raises(NotImplementedError, match="gi_fused_cone"):
-        engine.build_world(ecfg, verbose=False, device="cpu")
+    w = engine.build_world(fused, verbose=False, init_gi=False,
+                           device="cpu")
+    assert w.gi_occ is not None, "gi_fused_cone=True built no World.gi_occ"
+    np.testing.assert_array_equal(
+        u32.to_numpy(w.gi_occ),
+        u32.to_numpy(gi_grid.build_occlusion(w.sdf, ecfg.world)),
+        err_msg="World.gi_occ is not build_occlusion of the world's SDF")
+    plain = engine.build_world(ecfg, verbose=False, init_gi=False,
+                               device="cpu")
+    assert plain.gi_occ is None, "gi_fused_cone=False built a World.gi_occ"
+    np.testing.assert_array_equal(u32.to_numpy(plain.trace_table),
+                                  u32.to_numpy(w.trace_table))

@@ -215,6 +215,42 @@ def test_trace_supersteps_matches_plain_state(cuda, worlds, cadence):
         assert _bits_equal(s[k], before[k]), k
 
 
+@pytest.mark.parametrize("cadence", list(CADENCES))
+def test_slim_trace_supersteps_matches_plain_state(cuda, worlds, cadence):
+    """K1's slim-carry variant (one launch) leaves all 11 state arrays
+    bit-equal to the slim plain loop's - the tMax words untouched - and
+    the slim trace's fields equal the CPU's."""
+    ecfg = _ecfg(**CADENCES[cadence], slim_carry=True)
+    w = worlds[0]
+    rays = [torch.from_numpy(a).to(cuda) for a in _rays((48 * 64,), 7)]
+    s, dirs = wavefront.start_state(ecfg.world, *rays, sky_y=w.sky_y)
+    for k in ("tmx", "tmy", "tmz"):
+        s[k].fill_(-7.0)
+    sp = {k: v.clone() for k, v in s.items()}
+    want = superstep_kernel.trace_plain(ecfg.world, ecfg.render,
+                                        w.trace_table, dirs, sp,
+                                        sky_y=w.sky_y)
+    n0 = superstep_kernel.launches
+    got = superstep_kernel.trace_supersteps(ecfg.world, ecfg.render,
+                                            w.trace_table, dirs, s,
+                                            sky_y=w.sky_y)
+    assert superstep_kernel.launches - n0 == 1
+    assert int(got) == int(want) > 10
+    for k in wavefront.STATE_KEYS:
+        assert _bits_equal(s[k], sp[k]), k
+    assert bool((s["tmx"] == -7.0).all())
+    res = {}
+    for dev, world in (("cuda", w), ("cpu", worlds[1])):
+        r = [torch.from_numpy(a).to(dev) for a in _rays((48 * 64,), 7)]
+        res[dev] = wavefront.trace(None, None, ecfg.world, ecfg.render, *r,
+                                   table=world.trace_table,
+                                   sky_y=world.sky_y)
+    for f in ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v",
+              "its", "t"):
+        assert _bits_equal(getattr(res["cuda"], f).cpu(),
+                           getattr(res["cpu"], f)), f
+
+
 def _fan():
     """``tests/test_trace.py``'s straggler fan: 128 x 128 = 4 x 4096 rays
     from an open-air spot of the 64^3 world, where the respite engages."""

@@ -14,8 +14,10 @@ The two-phase straggler respite, on ``tests/test_trace.py``'s 128 x 128 ray
 fan: budgets 4, 8 and 12 at cap fractions 1.0 and 0.25, and a forced-tiny
 cap, bit-exact on every traced field and on ``degraded`` and ``exit_dir``,
 engaged at exactly 4 x 4096 rays and not one ray below; and the GI window's
-overflow count with the respite engaged.  The JAX side runs without FMA
-contraction (tests/torch_jaxref.py).
+overflow count with the respite engaged.  Slim carry (tMax recomputed
+each superstep, ``RenderConfig.slim_carry``) at the bench cadence and
+through the respite's two phases, bit-exact against JAX's slim path.  The JAX side
+runs without FMA contraction (tests/torch_jaxref.py).
 """
 
 from __future__ import annotations
@@ -83,8 +85,13 @@ def _rays():
     return [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t0]
 
 
-def _spec(cadence):
-    return ref.with_render(WORLD, **CADENCES[cadence])
+def _spec(cadence, slim: bool = False):
+    spec = ref.with_render(WORLD, **CADENCES[cadence])
+    return ref.with_render(spec, slim_carry=True) if slim else spec
+
+
+#: the respite cases traced with slim carry too
+SLIM_RESPITE = ("b12_f0.25",)
 
 
 def _fan(case):
@@ -104,10 +111,11 @@ def _fan(case):
     return [np.ascontiguousarray(a[:n], np.float32) for a in rays]
 
 
-def _respite_spec(case):
+def _respite_spec(case, slim: bool = False):
     budget, frac, extra = RESPITE[case]
     return ref.with_render(WORLD, **{**CADENCES["bench"], **extra},
-                           straggler_budget=budget, straggler_cap_frac=frac)
+                           straggler_budget=budget, straggler_cap_frac=frac,
+                           slim_carry=slim)
 
 
 def _states(world, cadence):
@@ -150,6 +158,15 @@ def jax_ref():
         jobs.append(("ref_trace", dict(spec=_respite_spec(case), world=world,
                                        rays=rays, shape=rays[0].shape)))
         keys.append(("respite", case))
+    jobs.append(("ref_trace", dict(spec=_spec("bench", slim=True),
+                                   world=world, rays=_rays(), shape=SHAPE)))
+    keys.append(("slim", "bench"))
+    for case in SLIM_RESPITE:
+        rays = _fan(case)
+        jobs.append(("ref_trace", dict(spec=_respite_spec(case, slim=True),
+                                       world=world, rays=rays,
+                                       shape=rays[0].shape)))
+        keys.append(("slim_respite", case))
     gi_world = engine.world_to_numpy(engine.build_world(
         ref.make_ecfg(tcfg, GI_SPEC), verbose=False, device="cpu"))
     jobs.append(("ref_gi_updates", dict(spec=GI_SPEC, world=gi_world,
@@ -177,6 +194,83 @@ def test_trace_bit_exact(jax_ref, cadence, fused):
         got = getattr(res, f).numpy()
         assert got.shape == SHAPE
         np.testing.assert_array_equal(got, want[f], err_msg=f)
+
+
+def test_slim_trace_bit_exact(jax_ref):
+    """``slim_carry=True`` at the slice's cadence (``ref.SLICE_SPEC``'s):
+    every traced field equals JAX's slim path (tMax recomputed from the
+    DDA-entry position each superstep and in the payload), bit for bit."""
+    ecfg = ref.make_ecfg(tcfg, _spec("bench", slim=True))
+    w = engine.world_from_numpy(jax_ref["world"], device="cpu")
+    rays = [torch.from_numpy(a.reshape(SHAPE)) for a in _rays()]
+    res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                          table=w.trace_table, sky_y=w.sky_y)
+    want = jax_ref[("slim", "bench")]
+    assert 0.2 < want["hit"].mean() < 0.95
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(res, f).numpy(), want[f],
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("case", SLIM_RESPITE)
+def test_slim_respite_bit_exact(jax_ref, case):
+    """Both phases of the respite carry ``slim_carry``, as JAX's
+    ``dataclasses.replace`` does: the two-phase slim trace equals JAX's on
+    every field, ``degraded`` and ``exit_dir`` included."""
+    ecfg = ref.make_ecfg(tcfg, _respite_spec(case, slim=True))
+    w = engine.world_from_numpy(jax_ref["world"], device="cpu")
+    rays = [torch.from_numpy(a) for a in _fan(case)]
+    seen = []
+    real = superstep_kernel.trace_supersteps
+
+    def spy(cfg, rcfg, *a, **kw):
+        seen.append(rcfg.slim_carry)
+        return real(cfg, rcfg, *a, **kw)
+
+    superstep_kernel.trace_supersteps = spy
+    try:
+        res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                              table=w.trace_table, sky_y=w.sky_y)
+    finally:
+        superstep_kernel.trace_supersteps = real
+    assert seen == [True, True]
+    want = jax_ref[("slim_respite", case)]
+    for f in FIELDS + ("degraded", "exit_dir"):
+        np.testing.assert_array_equal(getattr(res, f).numpy(), want[f],
+                                      err_msg=f)
+
+
+def test_slim_leaves_tmax_words_alone(jax_ref):
+    """A slim superstep neither reads nor writes the tMax words: garbage in
+    them changes nothing, and they come out as they went in."""
+    ecfg = ref.make_ecfg(tcfg, _spec("bench", slim=True))
+    w = engine.world_from_numpy(jax_ref["world"], device="cpu")
+    s_np, dirs_np = _states(jax_ref["world"], "bench")[2]
+    dirs = tuple(torch.from_numpy(a) for a in dirs_np)
+    outs = []
+    for fill in (0.0, 1234.5):
+        s = {k: torch.from_numpy(v.copy()) for k, v in s_np.items()}
+        for k in ("tmx", "tmy", "tmz"):
+            s[k].fill_(fill)
+        for _ in range(4):
+            superstep_kernel.fused_superstep(ecfg.world, ecfg.render,
+                                             w.trace_table, dirs, s,
+                                             sky_y=w.sky_y)
+        assert all(bool((s[k] == fill).all()) for k in ("tmx", "tmy",
+                                                         "tmz"))
+        outs.append(s)
+    for k in wavefront.STATE_KEYS[:8]:
+        np.testing.assert_array_equal(outs[0][k].numpy(), outs[1][k].numpy(),
+                                      err_msg=k)
+
+
+def test_z_edges_raises():
+    cfg = tcfg.WorldConfig().with_cube(6)
+    z = torch.zeros(4)
+    with pytest.raises(NotImplementedError, match="z_edges"):
+        wavefront.trace(None, None, cfg, tcfg.RenderConfig(), z, z, z, z,
+                        z + 1.0, z, z, table=torch.zeros(1, dtype=torch.int32),
+                        z_edges=(True, False))
 
 
 def test_trace_capped_budget_bit_exact(jax_ref):

@@ -577,6 +577,103 @@ def ref_render_rates(spec, world, cam, cases):
     return res
 
 
+def ref_render_starts(spec, world, cam, cases):
+    """The base frame + G-buffer for each render keyword dict of ``cases``
+    (``hint_half`` / ``hint_full`` / ``start_override`` /
+    ``shadow_override`` as numpy), eagerly through ``_flat_trace_fn``."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.render import pipeline
+
+    ecfg = make_ecfg(_cfg(), spec)
+    w = {k: jnp.asarray(v) for k, v in world.items()}
+    ca = _camera_arrays(cam)
+    res = []
+    for kw in cases:
+        out, gb = pipeline.render_frame(
+            w["bits"], w["sdf"], w["gi"], w["atlas"], ca, ecfg,
+            include_gi=False, sky_y=w["sky_y"], table=w["trace_table"],
+            return_gbuffer=True, trace_fn=_flat_trace_fn(ecfg, w),
+            **{k: jnp.asarray(v) for k, v in kw.items()})
+        res.append(dict(out=_np(out._asdict()), gb=_np(gb._asdict())))
+    return res
+
+
+def ref_hints(spec, half_dist, cam, prev_cam, prepass_kw, start_kw):
+    """``temporal_hints_from_prepass`` of ``half_dist`` for each keyword
+    dict of ``prepass_kw``, and ``temporal_start_hint`` of the prepass grid
+    distances (``half_dist`` + bias) for each ``(out_h, out_w, kw)`` of
+    ``start_kw``."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.render import pipeline
+
+    rcfg = make_ecfg(_cfg(), spec).render
+    ca, pa = _camera_arrays(cam), _camera_arrays(prev_cam)
+    hd = jnp.asarray(half_dist)
+    pre = [tuple(np.asarray(h) for h in pipeline.temporal_hints_from_prepass(
+        hd, ca, pa, rcfg, **kw)) for kw in prepass_kw]
+    starts = [np.asarray(pipeline.temporal_start_hint(
+        ca, pa, hd + jnp.float32(rcfg.dist_bias), rcfg, oh, ow, **kw))
+        for oh, ow, kw in start_kw]
+    return dict(prepass=pre, starts=starts)
+
+
+def ref_cone(spec, world, color, gb):
+    """The fused cone table's parts on ``world``: ``build_occlusion`` in
+    its three modes, ``make_cone_table`` (the mean mip), the table sampled
+    at the G-buffer's hits, and ``gi_composite`` of the base ``color`` and
+    G-buffer ``gb`` (numpy) with ``spec``'s ``gi_fused_cone``, eagerly."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.render import pipeline
+    from rvgrt_tpu.world import gi_grid
+
+    ecfg = make_ecfg(_cfg(), spec)
+    cfg = ecfg.world
+    sdf, gi = jnp.asarray(world["sdf"]), jnp.asarray(world["gi"])
+    occ = {m: gi_grid.build_occlusion(sdf, cfg, m)
+           for m in ("mean", "min", "max")}
+    table = gi_grid.make_cone_table(gi, occ["mean"])
+    g = pipeline.GBuffer(**{k: jnp.asarray(v) for k, v in gb.items()})
+    sample = gi_grid.sample_cone_table(table, cfg, g.px, g.py, g.pz)
+    comp = pipeline.gi_composite(jnp.asarray(color), g, gi, sdf, ecfg)
+    return dict(occ={m: np.asarray(v) for m, v in occ.items()},
+                table=np.asarray(table),
+                sample=[np.asarray(a) for a in sample],
+                composite=np.asarray(comp))
+
+
+def ref_frame_step(spec, world, steps, pose, clock):
+    """The JAX ``Engine.step`` on ``world`` (numpy) with ``spec``'s
+    ``gi_split_dispatch`` (False: ``frame_step``, the GI update and the
+    in-slab GI frame in one jit) for ``steps`` frames from ``pose`` with a
+    fixed wall clock; each frame's outputs and the GI words after."""
+    import time
+
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.driver import engine
+    from rvgrt_tpu.scene.camera import Character, InputState
+
+    time.time = lambda: clock
+    ecfg = make_ecfg(_cfg(), spec)
+    eng = engine.Engine.__new__(engine.Engine)
+    eng.ecfg, eng.include_gi = ecfg, True
+    eng.world = engine.World(**{k: jnp.asarray(v) for k, v in world.items()})
+    r = ecfg.render
+    eng.character = Character(display_width=r.display_width,
+                              display_height=r.display_height,
+                              render_width=r.width, render_height=r.height)
+    eng.frame_count, eng.gi_offset, eng.start_time = 0, 0, clock
+    eng.character.position = np.asarray(pose["position"], np.float32)
+    eng.character.yaw = pose["yaw"]
+    eng.character.pitch = pose["pitch"]
+    frames = [_np(eng.step(InputState(mouse_dx=pose["mouse_dx"]))._asdict())
+              for _ in range(steps)]
+    return dict(frames=frames, gi=np.asarray(eng.world.gi))
+
+
 def _load_net(upscaler, path):
     """The JAX package's (net, params) of a checkpoint as ``bench.py``
     loads it for ``upscaler``, or (None, None)."""

@@ -81,6 +81,30 @@ is printed.
    world: three MJPEG parts and one input POST through urllib, the server
    stopped.  ``utils/profiling.device_time_ms`` on one frame beside its
    CUDA-event time;
+5e. parallel (main paths; ``phase_parallel``, the port of
+   ``rvgrt_tpu/parallel/`` on ``torch.distributed``).  K1's ZEDGES
+   instantiations (carried and slim) on the headline's primary rays at
+   the 1024^3 world cut into 4 z-slabs: slab 2, where the camera sits,
+   with z_edges (False, False), and slab 0 with (True, False), each bit
+   for bit against the plain loop on the 11 state arrays, ``steps`` and
+   ``exit_dir``, lanes leaving through both interior faces, with graph
+   times and bounds.  Phase A, over a 1-rank NCCL group at the headline:
+   6 frames of ``render_frame_sharded`` (bit for bit against
+   ``render_slab`` at full height), ``update_gi_sharded`` every 2nd frame
+   (the words against ``update_gi``) and ``temporal_upscale_sharded(
+   warp_taps="pallas")`` (against ``temporal_upscale``), each timed beside
+   the unsharded call; ``trace_volume_sharded`` of the 1 024 000 primary
+   rays, carried and slim (each bit for bit against ``trace``), and
+   ``render_frame_volume``
+   (PSNR > 30 dB, under 3 % of pixels off by more than 0.02).  Phase B:
+   four processes on the one card in a gloo group (NCCL takes one rank a
+   GPU; packets go through host memory, ``"transport": "gloo-host"``):
+   the ring trace of the primary rays over 4 z-slabs of the 1024^3 world
+   against the single-device trace (``tests/test_volume.py``'s
+   thresholds), a bounded ring (65 536 rays a packet) bit-equal to the
+   unbounded one, and ``render_frame_volume`` on a 256^3 world at 320x200
+   (the frame gate above); the rounds, handoffs and packet bytes of each
+   round and rank;
 6. traced GI init (main path): ``config_stage4``'s GI init on the same
    world (stage 4's): one sun-shadow ray per GI cell through K1, at stride
    (1, 1) all 2^24 cells in one trace and at (2, 2) 2^22, each timed; K1 on
@@ -120,7 +144,8 @@ is printed.
    trace, a GI window's respite phase 1 (budget 12) and phase 2, config-4's
    checkerboard and quarter primary traces and the full-rate path's primary
    trace, each bit-exact and graph-timed (and the GI init's, phase 6; the
-   slim variant's, phase 5d); K2 at the headline's (2400, 3840),
+   slim variant's, phase 5d; the ZEDGES variants', phase 5e); K2 at the
+   headline's (2400, 3840),
    config-4's (1080, 1920) and the CLI's (3240, 5760) histories (the last
    by a direct call on the CLI's state); K3 at the world build's four passes.  P1's and
    P2's rows are phase 10's, at the 100 MiB table;
@@ -168,6 +193,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -246,8 +272,13 @@ def reference_loop_config(shifts=(6, 6, 6)):
         gi_rays_per_frame=16384)
 
 
-#: each kernel's launch counter: (module under rvgrt_tpu_torch.ops, name)
+#: each kernel's launch counter: (module under rvgrt_tpu_torch.ops, name);
+#: K1's also by instantiation (the carried one without z_edges has K1's
+#: launches less the other three)
 COUNTERS = {"K1": ("superstep_kernel", "launches"),
+            "K1_slim": ("superstep_kernel", "slim_launches"),
+            "K1_zedges": ("superstep_kernel", "zedges_launches"),
+            "K1_zedges_slim": ("superstep_kernel", "zedges_slim_launches"),
             "K2": ("warp_kernels", "launches"),
             "K3": ("sdf_kernels", "launches"),
             "P1": ("gather_kernels", "take_clip_launches"),
@@ -750,7 +781,7 @@ K1_READ_WORDS = K1_POS + K1_CELL + ("its",) + K1_TM + K1_DIR + K1_DD_ST
 
 
 def k1_step_ops(cfg, rcfg, dirs, s, nxt, sky_y, gathered, read,
-                turned) -> int:
+                turned, z_edges=None) -> int:
     """The operations one superstep needs, taking state ``s`` to ``nxt``,
     estimated per branch each lane takes (csrc/superstep_kernel.cu; DDA:
     per substep taken, from its), all charged at the int32 rate.  Marks in
@@ -761,7 +792,8 @@ def k1_step_ops(cfg, rcfg, dirs, s, nxt, sky_y, gathered, read,
     turns are added to it."""
     from rvgrt_tpu_torch.trace import wavefront as wf
 
-    pre = wf._superstep_pregather(cfg, rcfg, dirs, s, sky_y=sky_y)
+    pre = wf._superstep_pregather(cfg, rcfg, dirs, s, sky_y=sky_y,
+                                  z_edges=z_edges)
     phase = wf._get(s["flags"], wf._PH_SH, wf._PH_W)
     after = wf._get(nxt["flags"], wf._PH_SH, wf._PH_W)
     sphere, probe, act = pre["in_sphere"], pre["probe_turn"], \
@@ -841,35 +873,62 @@ def _k1_max_abs(a, b) -> float:
                 for k in wf.STATE_KEYS] + [0.0])
 
 
-def check_k1_trace(cfg, table, sky_y, rcfg, s0, dirs, dev) -> dict:
+def k1_exit_dirs(s, dirs, rcfg, z_edges):
+    """The payload's ``exit_dir`` of a final state (z_edges traces)."""
+    import torch
+
+    from rvgrt_tpu_torch.trace import wavefront as wf
+
+    z = torch.zeros_like(s["px"])
+    return wf._payload(s, dirs, z, z, z, torch.zeros((), dtype=torch.int32,
+                                                     device=z.device),
+                       slim=rcfg.slim_carry, z_edges=z_edges).exit_dir
+
+
+def check_k1_trace(cfg, table, sky_y, rcfg, s0, dirs, dev,
+                   z_edges=None) -> dict:
     """K1 (one launch) against the plain loop on one captured trace, bit
-    for bit on all 11 state arrays and on ``steps``; with the launch's
-    graph-timed device ms."""
+    for bit on all 11 state arrays and on ``steps`` (with ``z_edges``, on
+    the payload's ``exit_dir`` too, and the lanes that exit low and high
+    are counted); with the launch's graph-timed device ms."""
+    import torch
+
     from rvgrt_tpu_torch.ops import superstep_kernel as k1
     from rvgrt_tpu_torch.utils.timer import graph_ms
 
     sp = {k: v.clone() for k, v in s0.items()}
-    want = int(k1.trace_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y))
+    want = int(k1.trace_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y,
+                              z_edges=z_edges))
     sk = {k: v.clone() for k, v in s0.items()}
-    got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, sk, sky_y=sky_y))
+    got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, sk, sky_y=sky_y,
+                                  z_edges=z_edges))
     bad = _k1_mismatches(sp, sk)
     err = _k1_max_abs(sp, sk)
     assert not bad and got == want, \
         f"K1 differs from its plain version: arrays {bad} (max abs " \
         f"{err}), steps {got} vs {want}"
+    out = dict(lanes=s0["flags"].numel(), budget=rcfg.max_supersteps,
+               steps=got, max_abs_err=err, bit_exact=True)
+    if z_edges is not None:
+        ed = k1_exit_dirs(sp, dirs, rcfg, z_edges)
+        assert torch.equal(ed, k1_exit_dirs(sk, dirs, rcfg, z_edges))
+        out.update(z_edges=list(z_edges), slim=rcfg.slim_carry,
+                   exits_low=int((ed < 0).sum()),
+                   exits_high=int((ed > 0).sum()))
 
     def reset():
         for key, v in s0.items():
             sk[key].copy_(v)
 
-    ms = graph_ms(lambda: k1.trace_supersteps(cfg, rcfg, table, dirs, sk,
-                                              sky_y=sky_y), dev, setup=reset)
-    return dict(lanes=s0["flags"].numel(), budget=rcfg.max_supersteps,
-                steps=got, ms=ms, max_abs_err=err, bit_exact=True)
+    out["ms"] = graph_ms(lambda: k1.trace_supersteps(
+        cfg, rcfg, table, dirs, sk, sky_y=sky_y, z_edges=z_edges), dev,
+        setup=reset)
+    return out
 
 
 def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev, plain_reps: int = 3,
-             what: str = "the checkerboard primary trace") -> dict:
+             what: str = "the checkerboard primary trace",
+             z_edges=None) -> dict:
     """K1 against the plain loop on one captured trace (``what``; the row's
     is the headline's checkerboard primary trace): superstep by superstep
     (``fused_superstep``, a budget of one superstep a launch) and the whole
@@ -895,13 +954,15 @@ def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev, plain_reps: int = 3,
             for key in K1_READ_WORDS}
     turned = torch.zeros(n, dtype=torch.bool, device=dev)
     steps, ops_total, bad_steps, max_err = 0, 0, 0, 0.0
+    zk = dict(z_edges=z_edges)
     while steps < rcfg.max_supersteps and wf.any_live(sp["flags"]):
         for _ in range(k):
-            nxt = k1.superstep_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y)
+            nxt = k1.superstep_plain(cfg, rcfg, table, dirs, sp, sky_y=sky_y,
+                                     **zk)
             ops_total += k1_step_ops(cfg, rcfg, dirs, sp, nxt, sky_y,
-                                     gathered, read, turned)
+                                     gathered, read, turned, **zk)
             sp = nxt
-            k1.fused_superstep(cfg, rcfg, table, dirs, sk, sky_y=sky_y)
+            k1.fused_superstep(cfg, rcfg, table, dirs, sk, sky_y=sky_y, **zk)
             if _k1_mismatches(sp, sk):
                 bad_steps += 1
                 max_err = max(max_err, _k1_max_abs(sp, sk))
@@ -912,7 +973,8 @@ def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev, plain_reps: int = 3,
 
     # the whole trace in one launch
     s = fresh()
-    got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y))
+    got = int(k1.trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y,
+                                  **zk))
     bad = _k1_mismatches(sp, s)
     max_err = max(max_err, _k1_max_abs(sp, s))
     assert not bad and got == steps, \
@@ -926,11 +988,12 @@ def check_k1(cfg, table, sky_y, rcfg, s0, dirs, dev, plain_reps: int = 3,
             graph_state[key].copy_(v)
 
     ms = graph_ms(lambda: k1.trace_supersteps(
-        cfg, rcfg, table, dirs, graph_state, sky_y=sky_y), dev, setup=reset)
+        cfg, rcfg, table, dirs, graph_state, sky_y=sky_y, **zk), dev,
+        setup=reset)
     event_ms = timed_ms(lambda s: k1.trace_supersteps(
-        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, setup=fresh)
+        cfg, rcfg, table, dirs, s, sky_y=sky_y, **zk), dev, setup=fresh)
     plain_ms = timed_ms(lambda s: k1.trace_plain(
-        cfg, rcfg, table, dirs, s, sky_y=sky_y), dev, reps=plain_reps,
+        cfg, rcfg, table, dirs, s, sky_y=sky_y, **zk), dev, reps=plain_reps,
         warmup=1 if plain_reps > 1 else 0, setup=fresh)
     moved = k1_trace_bytes(s0, sp, read, gathered)
     t_bytes = moved["total"] / HBM_BYTES_PER_S
@@ -2555,6 +2618,518 @@ def phase_switches(eng, ecfg, pose, dev, counts: dict,
     return rep
 
 
+#: phase B's ring: ranks on the one card, its bounded packet, and the
+#: reduced frame (the world's log2 edge and the frame's size)
+RING_RANKS = 4
+RING_HANDOFF_CAP = 65536
+RING_FRAME = (8, 320, 200)
+PARALLEL_FRAMES = 6
+#: a ring trace's result fields
+RING_FIELDS = ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v",
+               "its", "t")
+
+
+def headline_rays(cam, rcfg) -> list:
+    """The primary rays of a frame at ``cam``, flat: the camera's position,
+    ``render_slab``'s ray directions and a start distance of 0."""
+    import torch
+
+    from rvgrt_tpu_torch.render import pipeline
+
+    dx, dy, dz = pipeline._ray_dirs(cam, rcfg.width, rcfg.height,
+                                    pixel_center=False)
+    n = dx.numel()
+    o = [cam.pos[i].expand(n).contiguous() for i in range(3)]
+    return o + [a.reshape(-1).contiguous() for a in (dx, dy, dz)] + [
+        torch.zeros(n, dtype=torch.float32, device=dx.device)]
+
+
+def _frame_diff(a, b) -> dict:
+    """PSNR and the share of pixels off by more than 0.02 (the volume
+    frame gates of tests/test_volume.py)."""
+    import torch
+
+    d = (a.double() - b.double())
+    mse = float((d * d).mean())
+    off = float((d.abs().amax(dim=-1) > 0.02).double().mean())
+    return dict(psnr=99.0 if mse == 0 else -10.0 * math.log10(mse),
+                frac_off=off, max_abs=float(d.abs().max()))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_k1_zedges(w, cfg, rcfg, cam, dev) -> dict:
+    """K1's ZEDGES instantiations against the plain loop on the headline's
+    primary rays, at the 1024^3 world cut into 4 z-slabs
+    (``volume.slab_table``, the tables ``build_shard_tables`` gives each
+    rank): slab 2, where the camera sits (on its low face), with z_edges
+    (False, False) and, as if it were the world's first slab, (True,
+    False); and slab 0 with (True, False), the rays moved 512 voxels down
+    in z so that the camera sits on slab 0's low face, the world's own;
+    each carried and slim.  The (False, False) traces also superstep by
+    superstep, with their graph time and count-once bound."""
+    import torch
+
+    from rvgrt_tpu_torch.parallel import volume
+    from rvgrt_tpu_torch.trace import wavefront as wf
+
+    n_slabs = 4
+    lcfg = volume.local_config(cfg, n_slabs)
+    slab = lcfg.size_z
+    rays = headline_rays(cam, rcfg)
+    cam_slab = int(float(cam.pos[2]) // slab)
+    assert cam_slab == 2, cam_slab
+    rep = {"slab_depth": slab, "lanes": rays[0].numel()}
+    # the camera on the low face of either slab: its local z is 0
+    oz = rays[2] - float(slab * cam_slab)
+    for index, edges in ((2, (False, False)), (2, (True, False)),
+                         (0, (True, False))):
+        table = volume.slab_table(w.bits, w.sdf, cfg, n_slabs, index)
+        for slim in (False, True):
+            rc = dataclasses.replace(rcfg, slim_carry=slim)
+            s0, dirs = wf.start_state(lcfg, rays[0], rays[1], oz, *rays[3:],
+                                      sky_y=w.sky_y, z_edges=edges)
+            key = f"slab{index}{'_first' if index and edges[0] else ''}_" \
+                  f"{'slim' if slim else 'carried'}"
+            rep[key] = check_k1_trace(lcfg, table, w.sky_y, rc, s0, dirs,
+                                      dev, z_edges=edges)
+            if edges == (False, False):
+                rep[key].update(check_k1(
+                    lcfg, table, w.sky_y, rc, s0, dirs, dev, plain_reps=1,
+                    what=f"the headline primary rays in slab {index} of 4",
+                    z_edges=edges))
+            del s0, dirs
+        del table
+    for slim in ("carried", "slim"):
+        r = rep[f"slab2_{slim}"]
+        assert r["exits_low"] > 0 and r["exits_high"] > 0, r
+        r = rep[f"slab2_first_{slim}"]
+        assert r["exits_low"] == 0 and r["exits_high"] > 0, r
+        assert rep[f"slab0_{slim}"]["exits_low"] == 0, rep[f"slab0_{slim}"]
+    torch.cuda.synchronize(dev)
+    return rep
+
+
+def phase_parallel_one(eng, ecfg, cams, dev, counts: dict,
+                       frames: int = PARALLEL_FRAMES) -> dict:
+    """Phase A: ``parallel/`` over a 1-rank NCCL group at the headline
+    (1280x800 -> 3840x2400 on the 1024^3 world).  The sharded path
+    (main path, counted): ``frames`` frames of ``render_frame_sharded``,
+    ``update_gi_sharded`` every 2nd frame and ``temporal_upscale_sharded
+    (warp_taps="pallas")``, each held against ``render_slab`` at full
+    height, ``update_gi`` and ``temporal_upscale`` on the same inputs and
+    timed beside them (CUDA events, host included; the medians leave out
+    each call's first).  The volume path (main
+    path, counted): ``trace_volume_sharded`` of the headline's primary rays,
+    carried and slim (each bit for bit against ``trace``; the ring runs no
+    respite), and
+    ``render_frame_volume`` (PSNR > 30 dB, under 3 % of pixels off by more
+    than 0.02, against ``render_frame``)."""
+    import torch
+    import torch.distributed as dist
+
+    from rvgrt_tpu_torch.gi import update as gi_update
+    from rvgrt_tpu_torch.parallel import sharding, volume
+    from rvgrt_tpu_torch.render import pipeline
+    from rvgrt_tpu_torch.trace import wavefront
+    from rvgrt_tpu_torch.upscale import temporal
+    from rvgrt_tpu_torch.utils.timer import Timer
+
+    w, cfg, r = eng.world, ecfg.world, ecfg.render
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    rep = {"transport": backend, "ranks": 1}
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = sharding.make_mesh(1, device_type=dev.type)
+        zmesh = sharding.make_mesh(1, axis="z", device_type=dev.type)
+
+        def timed(fn):
+            with Timer("", verbose=False, device=dev) as t:
+                out = fn()
+            return out, t.elapsed_ms
+
+        # ---- the sharded path (main path, counted) and the same inputs
+        # unsharded (not counted), interleaved a frame at a time, the
+        # order alternating ----
+        c = {k: 0 for k in COUNTERS}
+        traces = [0]
+
+        def counted(fn):
+            wavefront.reset_stats()
+            before = read_counts()
+            out = timed(fn)
+            traces[0] += wavefront.read_stats()["traces"]
+            for k, v in read_counts().items():
+                c[k] += v - before[k]
+            return out
+
+        def pair(f, sharded, unsharded):
+            """(sharded result, unsharded result, (sharded ms, unsharded
+            ms)), the order alternating with the frame."""
+            if f % 2 == 0:
+                a, ta = counted(sharded)
+                b, tb = timed(unsharded)
+            else:
+                b, tb = timed(unsharded)
+                a, ta = counted(sharded)
+            return a, b, (ta, tb)
+
+        gi, off = w.gi, 0
+        packed = temporal.pack_state(temporal.init_state(r.height, r.width,
+                                                         device=dev))
+        st_ref = temporal.init_state(r.height, r.width, device=dev)
+        frame_ms, gi_ms, up_ms = [], [], []
+        up_err, packed_same = 0.0, []
+        for f in range(frames):
+            cam = cams[f][1]
+            out, ref, ms = pair(
+                f, lambda: sharding.render_frame_sharded(
+                    w.bits, w.sdf, gi, w.atlas, cam, ecfg, mesh,
+                    include_gi=True, gi_occ=w.gi_occ, sky_y=w.sky_y,
+                    table=w.trace_table),
+                lambda: pipeline.render_slab(
+                    w.bits, w.sdf, gi, w.atlas, cam, ecfg, 0, r.height,
+                    include_gi=True, gi_occ=w.gi_occ, sky_y=w.sky_y,
+                    table=w.trace_table))
+            frame_ms.append(ms)
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b), "render_frame_sharded differs"
+            if f % 2 == 0:
+                gi_s, gi_u, ms = pair(
+                    f, lambda: sharding.update_gi_sharded(
+                        gi, w.bits, w.sdf, w.atlas, ecfg, f, off, mesh,
+                        sky_y=w.sky_y, table=w.trace_table),
+                    lambda: gi_update.update_gi(
+                        gi, w.bits, w.sdf, w.atlas, ecfg, f, off,
+                        sky_y=w.sky_y, table=w.trace_table))
+                gi_ms.append(ms)
+                assert torch.equal(gi_s, gi_u), "update_gi_sharded differs"
+                gi = gi_s
+                off = gi_update.advance_offset(off, ecfg)
+            (up, packed), (uref, st_ref), ms = pair(
+                f, lambda: sharding.temporal_upscale_sharded(
+                    out.color, out.motion, cam.jitter, packed, mesh,
+                    warp_taps="pallas"),
+                lambda: temporal.temporal_upscale(
+                    out.color, out.motion, out.depth, cam.jitter, st_ref,
+                    warp_taps="pallas"))
+            up_ms.append(ms)
+            up_err = max(up_err, float((uref - up).abs().max()))
+            packed_same.append(float((temporal.pack_state(st_ref)
+                                      == packed).double().mean()))
+        counts["sharded_n1"] = c
+        assert c["K1"] == traces[0] > 0 and c["K2"] == frames, (c, traces)
+        assert up_err <= 1.5 / 255, up_err
+        rep["sharded"] = dict(
+            frames=frames, launches=c, traces=traces[0],
+            bit_exact=["render_frame_sharded (all 5 outputs)",
+                       "update_gi_sharded (the words)"],
+            upscale_max_abs_vs_unsharded=up_err,
+            upscale_packed_words_equal_share=packed_same,
+            **{f"{k}_ms_sharded_unsharded": v for k, v in (
+                ("frame", frame_ms), ("gi", gi_ms), ("upscale", up_ms))},
+            **{f"{k}_ms_median": dict(
+                sharded=statistics.median(a for a, _ in v),
+                unsharded=statistics.median(b for _, b in v))
+               for k, v in (("frame", frame_ms[1:]), ("gi", gi_ms[1:]),
+                            ("upscale", up_ms[1:]))})
+        log(f"phase A sharded (1 rank): {rep['sharded']}")
+
+        # ---- the volume path (main path) ----
+        cam = cams[-1][1]
+        rays = headline_rays(cam, r)
+        ring_rep = {}
+        reset_counts()
+        tables, table_ms = timed(lambda: volume.build_shard_tables(
+            w.bits, w.sdf, cfg, zmesh))
+        ring, ring_ms = timed(lambda: volume.trace_volume_sharded(
+            tables, cfg, r, zmesh, *rays, sky_y=w.sky_y, report=ring_rep))
+        slim = dataclasses.replace(r, slim_carry=True)  # BENCH_SLIM=1
+        ring_slim, ring_slim_ms = timed(lambda: volume.trace_volume_sharded(
+            tables, cfg, slim, zmesh, *rays, sky_y=w.sky_y))
+        vframe, vframe_ms = timed(lambda: volume.render_frame_volume(
+            tables, w.sdf, w.gi, w.atlas, cam, ecfg, zmesh, include_gi=True,
+            sky_y=w.sky_y))
+        torch.cuda.synchronize(dev)
+        c = counts["volume_n1"] = read_counts()
+        assert c["K1_zedges"] + c["K1_zedges_slim"] == c["K1"], c
+        assert c["K1_zedges"] > 0 and c["K1_zedges_slim"] > 0, c
+        assert torch.equal(tables, w.trace_table)
+        plain, plain_ms = timed(lambda: wavefront.trace(
+            None, None, cfg, dataclasses.replace(r, straggler_budget=0),
+            *rays, table=w.trace_table, sky_y=w.sky_y))
+        plain_slim = wavefront.trace(
+            None, None, cfg, dataclasses.replace(slim, straggler_budget=0),
+            *rays, table=w.trace_table, sky_y=w.sky_y)
+        for f in RING_FIELDS:
+            assert torch.equal(getattr(ring, f), getattr(plain, f)), f
+            assert torch.equal(getattr(ring_slim, f),
+                               getattr(plain_slim, f)), f
+        single, single_ms = timed(lambda: pipeline.render_frame(
+            w.bits, w.sdf, w.gi, w.atlas, cam, ecfg, include_gi=True,
+            gi_occ=w.gi_occ, sky_y=w.sky_y, table=w.trace_table))
+        diff = _frame_diff(vframe.color, single.color)
+        assert diff["psnr"] > 30.0 and diff["frac_off"] < 0.03, diff
+        rep["volume"] = dict(
+            launches=c, rays=rays[0].numel(), ring=ring_rep,
+            ring_trace_bit_exact=True, table_ms=table_ms, ring_ms=ring_ms,
+            ring_slim_ms=ring_slim_ms,
+            trace_ms=plain_ms, frame_ms=vframe_ms,
+            render_frame_ms=single_ms, frame_vs_render_frame=diff,
+            hit_share=float(plain.hit.double().mean()))
+        log(f"phase A volume (1 rank): {rep['volume']}")
+    finally:
+        dist.destroy_process_group()
+    return rep
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ring_rank(rank: int, n: int, port: int, folder: str) -> None:
+    """One rank of phase B, in a process of its own on card 0, in a gloo
+    group (packets staged through host memory): the ring trace of the
+    headline's primary rays, unbounded and bounded, and the reduced frame;
+    each rank writes its times, reports, launch counts and (rank 0) the
+    results beside the job."""
+    import torch
+    import torch.distributed as dist
+
+    from rvgrt_tpu_torch.parallel import sharding, volume
+    from rvgrt_tpu_torch.render.pipeline import CameraArrays
+    from rvgrt_tpu_torch.trace import wavefront
+
+    torch.set_num_threads(2)
+    d = Path(folder)
+    job = torch.load(d / "job.pt", weights_only=False)
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=n, rank=rank)
+    try:
+        mesh = sharding.make_mesh(n, axis="z", device_type=dev.type)
+        on = lambda t: t.to(dev)  # noqa: E731
+        table = on(torch.load(d / f"table_{rank}.pt"))
+        rays = [on(a) for a in job["rays"]]
+        out = {}
+        reset_counts()
+        # a first ring over 4096 of the rays takes each process's first
+        # calls' set-up out of the timed rings
+        volume.trace_volume_sharded(table, job["cfg"], job["rcfg"], mesh,
+                                    *[a[:4096] for a in rays],
+                                    sky_y=on(job["sky_y"]))
+        for name, cap in (("unbounded", None),
+                          ("bounded", job["handoff_cap"])):
+            rep = {}
+            dist.barrier()
+            sync(dev)
+            t0 = time.perf_counter()
+            res = volume.trace_volume_sharded(
+                table, job["cfg"], job["rcfg"], mesh, *rays,
+                sky_y=on(job["sky_y"]), handoff_cap=cap, report=rep)
+            sync(dev)
+            out[name] = dict(wall_ms=(time.perf_counter() - t0) * 1e3, **rep)
+            if rank == 0:
+                out[name + "_res"] = {f: getattr(res, f).cpu()
+                                      for f in RING_FIELDS}
+            del res
+        small = job["small"]
+        stable = on(torch.load(d / f"small_table_{rank}.pt"))
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        frame = volume.render_frame_volume(
+            stable, on(small["sdf"]), on(small["gi"]), on(small["atlas"]),
+            CameraArrays(*(on(a) for a in small["cam"])), small["ecfg"],
+            mesh, include_gi=True, sky_y=on(small["sky_y"]))
+        sync(dev)
+        out["frame_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            out["frame_color"] = frame.color.cpu()
+        out["counts"] = read_counts()
+        out["stats"] = wavefront.read_stats()
+        torch.save(out, d / f"out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(eng, ecfg, cams, dev, counts: dict) -> dict:
+    """``parallel/`` on the card: K1's ZEDGES instantiations held against
+    the plain loop (``phase_k1_zedges``, not counted), phase A over a
+    1-rank NCCL group (``phase_parallel_one``) and phase B, the ring over
+    four processes on the one card (``phase_volume_ring``)."""
+    rep = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rep.setdefault("wall_s", {})[name] = now - clock[0]
+        clock[0] = now
+
+    w, r = eng.world, ecfg.render
+    rep["k1_zedges"] = phase_k1_zedges(w, ecfg.world, r, cams[-1][1], dev)
+    log(f"K1 z_edges: {json.dumps(rep['k1_zedges'])}")
+    lap("k1_zedges")
+    rep["A"] = phase_parallel_one(eng, ecfg, cams, dev, counts)
+    lap("A")
+    rep["B"] = phase_volume_ring(w, ecfg, cams[-1][1], dev, counts)
+    lap("B")
+    return rep
+
+
+def phase_volume_ring(w, ecfg, cam, dev, counts: dict,
+                      timeout_s: float = 300.0) -> dict:
+    """Phase B: the volume ring over ``RING_RANKS`` processes on the one
+    card, in a gloo group (NCCL refuses two ranks on one GPU), packets
+    staged through host memory - so its times are not NCCL's and not a
+    multi-device result.  The parent writes each rank its slab's table
+    (``volume.slab_table``), the headline's primary rays and a reduced
+    world (``RING_FRAME``: 256^3, 320x200) to files, builds nothing in the
+    ranks (the kernel library is already built) and spawns them.  Held:
+    the ring trace against the single-device trace to
+    ``tests/test_volume.py``'s thresholds; the bounded ring
+    (``RING_HANDOFF_CAP``) bit-equal to the unbounded one; the reduced
+    frame (``render_frame_volume``, GI on) against ``render_frame``, PSNR
+    > 30 dB and under 3 % of pixels off by more than 0.02.  Every rank:
+    K1 launches == traces, all of them the ZEDGES variant."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from rvgrt_tpu_torch.driver import engine, frame_loop
+    from rvgrt_tpu_torch.parallel import volume
+    from rvgrt_tpu_torch.render import pipeline
+    from rvgrt_tpu_torch.trace import wavefront
+
+    cfg, r = ecfg.world, ecfg.render
+    n = RING_RANKS
+    folder = ROOT / "rvgrt_tpu_torch" / "_build" / f"ring-{os.getpid()}"
+    folder.mkdir(parents=True, exist_ok=True)
+    t_setup = time.perf_counter()
+    try:
+        rays = headline_rays(cam, r)
+        for i in range(n):
+            torch.save(volume.slab_table(w.bits, w.sdf, cfg, n, i).cpu(),
+                       folder / f"table_{i}.pt")
+        shift, width, height = RING_FRAME
+        secfg = headline_config(shift, width, height)
+        small = engine.build_world(secfg, verbose=False, device=dev)
+        scam = frame_loop.path_cameras(
+            make_character(secfg, headline_pose(small.bits, secfg.world)),
+            [0.0], device=dev)[0][1]
+        for i in range(n):
+            torch.save(volume.slab_table(small.bits, small.sdf, secfg.world,
+                                         n, i).cpu(),
+                       folder / f"small_table_{i}.pt")
+        torch.save(dict(
+            device=str(dev), cfg=cfg, rcfg=r, rays=[a.cpu() for a in rays],
+            sky_y=w.sky_y.cpu(), handoff_cap=RING_HANDOFF_CAP,
+            small=dict(ecfg=secfg, cam=[a.cpu() for a in scam],
+                       sdf=small.sdf.cpu(), gi=small.gi.cpu(),
+                       atlas=small.atlas.cpu(), sky_y=small.sky_y.cpu())),
+            folder / "job.pt")
+        setup_s = time.perf_counter() - t_setup
+
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_ring_rank,
+                                 args=(n, free_port(), str(folder)),
+                                 nprocs=n, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(),
+                                           0.0)):
+                assert time.monotonic() < deadline, \
+                    f"phase B ran over {timeout_s} s"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks_s = time.perf_counter() - t0
+        outs = [torch.load(folder / f"out_{i}.pt", weights_only=False)
+                for i in range(n)]
+
+        # ---- the checks, in this process ----
+        plain = wavefront.trace(None, None, cfg, r, *rays,
+                                table=w.trace_table, sky_y=w.sky_y)
+        got = {f: v.to(dev) for f, v in outs[0]["unbounded_res"].items()}
+        for f in RING_FIELDS:
+            assert torch.equal(got[f], outs[0]["bounded_res"][f].to(dev)), f
+        agree = got["hit"] == plain.hit
+        both = got["hit"] & plain.hit & agree
+        match = {f: float(torch.isclose(got[f][both], getattr(plain, f)[both],
+                                        atol=2e-2, rtol=0).double().mean())
+                 for f in ("px", "py", "pz", "nx", "ny", "nz", "uv_u",
+                           "uv_v", "t")}
+        agree_share = float(agree.double().mean())
+        assert agree_share >= 0.99, agree_share
+        assert min(match.values()) >= 0.995, match
+        miss = ~got["hit"] & ~plain.hit
+        assert bool((got["px"][miss] == wavefront.MISS_POS).all())
+        single = pipeline.render_frame(
+            small.bits, small.sdf, small.gi, small.atlas, scam, secfg,
+            include_gi=True, gi_occ=small.gi_occ, sky_y=small.sky_y,
+            table=small.trace_table)
+        diff = _frame_diff(outs[0]["frame_color"].to(dev), single.color)
+        assert diff["psnr"] > 30.0 and diff["frac_off"] < 0.03, diff
+        summed = {k: sum(o["counts"][k] for o in outs) for k in COUNTERS}
+        for o in outs:
+            c, st = o["counts"], o["stats"]
+            assert c["K1"] == st["traces"] == c["K1_zedges"] > 0, (c, st)
+        counts["volume_ring"] = summed
+        rep = dict(
+            transport="gloo-host", ranks=n, device="one card, shared",
+            rays=rays[0].numel(), handoff_cap=RING_HANDOFF_CAP,
+            hit_agreement=agree_share, geometry_within_2e2=match,
+            bounded_equals_unbounded=True, hit_share=float(
+                plain.hit.double().mean()),
+            frame=dict(world=f"{1 << shift}^3", render=f"{width}x{height}",
+                       reduced=f"from 1024^3 and 1280x800 to {1 << shift}^3 "
+                               f"and {width}x{height}", **diff),
+            launches=summed, setup_s=setup_s, ranks_wall_s=ranks_s,
+            per_rank=[{k: o[k] for k in ("unbounded", "bounded",
+                                         "frame_wall_ms", "counts", "stats")}
+                      for o in outs])
+        log(f"phase B ring (gloo-host, {n} ranks on one card): "
+            f"{json.dumps(rep)}")
+        return rep
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def k1_instantiations(carried: dict, slim: dict, zedges: dict,
+                      launches: dict) -> list:
+    """K1's four template instantiations (SLIM x ZEDGES): each one's
+    launches on the main paths and, on its row's trace, its graph time,
+    bound and error against the plain loop."""
+    rows = []
+    for name, c, n in (
+            ("carried", carried, launches["K1"] - launches["K1_slim"]
+             - launches["K1_zedges"] - launches["K1_zedges_slim"]),
+            ("slim", slim, launches["K1_slim"]),
+            ("zedges", zedges["slab2_carried"], launches["K1_zedges"]),
+            ("zedges_slim", zedges["slab2_slim"],
+             launches["K1_zedges_slim"])):
+        rows.append(dict(variant=name, launches=n, **{
+            f: c[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "max_abs_err", "shape")}))
+    return rows
+
+
 KERNELS = {
     "K1": dict(name="trace_supersteps",
                source="rvgrt_tpu_torch/csrc/superstep_kernel.cu",
@@ -2688,6 +3263,12 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     del outs
     lap("full_rate")
 
+    # ---- main paths: parallel/ on torch.distributed - K1's ZEDGES
+    # variant, the 1-rank sharded and volume paths (NCCL) and the 4-rank
+    # ring on the one card (gloo) ----
+    report["parallel"] = phase_parallel(eng, ecfg, head["cams"], dev, counts)
+    lap("parallel")
+
     # ---- main paths: the render switches (slim carry, the fused cone
     # table, the temporal start hints), the PNG atlas, the viewer and the
     # profiler ----
@@ -2791,7 +3372,7 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
         torch.cuda.empty_cache()
         lap(f"world_{name}")
 
-    launches = {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+    launches = {k: sum(c[k] for c in counts.values()) for k in COUNTERS}
     table = []
     for k, meta in KERNELS.items():
         c = checks[k]
@@ -2802,6 +3383,10 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
         row.update(kernel_ms=c["ms"], max_err=c["max_abs_err"],
                    launches_by_path={p: v[k] for p, v in counts.items()},
                    **{f: v for f, v in c.items() if f not in row})
+        if k == "K1":
+            row["instantiations"] = k1_instantiations(
+                checks["K1"], report["switches"]["slim_carry"]["k1"],
+                report["parallel"]["k1_zedges"], launches)
         table.append(row)
     report["kernels"] = table
     return report
@@ -2874,6 +3459,7 @@ def main(argv=None) -> int:
         "post_modes", "world_checkpoint", "cli_net")}), flush=True)
     print(json.dumps({"train": report["train"]}), flush=True)
     print(json.dumps({"switches": report["switches"]}), flush=True)
+    print(json.dumps({"parallel": report["parallel"]}), flush=True)
     for n in worlds:
         print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)

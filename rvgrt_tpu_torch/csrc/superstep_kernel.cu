@@ -68,11 +68,25 @@
 // does, before its substeps; the turn to DDA sets none, and the tMax words
 // are neither loaded nor stored.  A carried value differs from the
 // recomputed one by rounding, so no register value is reused across
-// supersteps.  The two instantiations share every other line.
+// supersteps.
 //
-// ptxas for sm_90a (RVGRT_PTXAS_VERBOSE=1): trace_kernel uses 43 registers,
-// no stack frame and no spills; the register file then holds at most 5
-// blocks of 256 threads (40 of 64 warps) per SM.
+// Volume-sharded tracing (wavefront.trace's z_edges, parallel/volume.py):
+// the ZEDGES instantiation traces one z-slab of a larger world.  A ray that
+// leaves the slab through an interior z face, with x and y inside, retires
+// as PHASE_EXIT_LO / PHASE_EXIT_HI instead of missing: in SPHERE the test
+// sits beside the sky test (the mask set to NONE, so the payload is the
+// sphere position), in DDA inside the substeps' bounds test (the payload is
+// the entry point of the first cell outside the slab).  is_first / is_last
+// (launch arguments) make the world's own first / last face a miss.  Exit
+// phases are >= PHASE_MISS, so the fetch and the retirement test treat an
+// exit as retired like a hit or a miss, and `steps` counts it the same way.
+// Lanes that start outside the slab are retired as exits by
+// wavefront.start_state before the launch.  All four instantiations (SLIM x
+// ZEDGES) share every other line.
+//
+// ptxas for sm_90a (RVGRT_PTXAS_VERBOSE=1): trace_kernel<false, false> uses
+// 43 registers, no stack frame and no spills; the register file then holds
+// at most 5 blocks of 256 threads (40 of 64 warps) per SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +96,8 @@ constexpr int PHASE_SPHERE = 0;
 constexpr int PHASE_DDA = 1;
 constexpr int PHASE_MISS = 2;
 constexpr int PHASE_HIT = 3;
+constexpr int PHASE_EXIT_LO = 4;
+constexpr int PHASE_EXIT_HI = 5;
 constexpr int MASK_X = 0;
 constexpr int MASK_Y = 1;
 constexpr int MASK_Z = 2;
@@ -183,10 +199,12 @@ __device__ __forceinline__ float recompute_tmax(float p, int i, int st,
 
 // One superstep of a live ray (phase SPHERE or DDA), in place on `r`.
 // Returns the DIRTY_* groups it wrote.  SLIM: slim carry (r.tm* unused).
-template <bool SLIM>
+// ZEDGES: a z-slab of a larger world; z_first / z_last say whether its low
+// / high z face is the world's own.
+template <bool SLIM, bool ZEDGES>
 __device__ __forceinline__ unsigned superstep(
     const TraceParams& p, const uint32_t* __restrict__ table, bool has_sky,
-    float sky, const Dir& d, Ray& r) {
+    float sky, bool z_first, bool z_last, const Dir& d, Ray& r) {
   uint32_t fl = r.fl;
   const int phase = (int)get_field(fl, PH_SH, PH_W);
   const float x = r.px, y = r.py, z = r.pz;
@@ -196,6 +214,17 @@ __device__ __forceinline__ unsigned superstep(
     // above every solid voxel and not descending: can never hit
     r.fl = set_field(fl, PH_SH, PH_W, PHASE_MISS);
     return DIRTY_FLAGS;
+  }
+  if (ZEDGES && in_sphere && x >= 0.0f && y >= 0.0f &&
+      x < (float)p.size_x && y < (float)p.size_y) {
+    // an interior slab face hands the ray on; it keeps its position
+    const bool lo = z < 0.0f && !z_first;
+    const bool hi = z >= (float)p.size_z && !z_last;
+    if (lo || hi) {
+      fl = set_field(fl, PH_SH, PH_W, lo ? PHASE_EXIT_LO : PHASE_EXIT_HI);
+      r.fl = set_field(fl, MK_SH, MK_W, MASK_NONE);
+      return DIRTY_FLAGS;
+    }
   }
   const int dda_i = (int)get_field(fl, DD_SH, DD_W);
   const int probed = (int)((fl >> PR_SH) & 1u);
@@ -314,12 +343,19 @@ __device__ __forceinline__ unsigned superstep(
     int ldda = dda_i;
     int lits = r.its;
     bool hit = false, miss = false, stepped = false;
+    int exit_phase = 0;  // ZEDGES: PHASE_EXIT_LO / HI when the ray left
     const int nsub = p.dda_substeps > 1 ? p.dda_substeps : 1;
     for (int k = 0; k < nsub; ++k) {
       lits += 1;  // loop-top its++
       if (cix < 0 || ciy < 0 || ciz < 0 || cix >= p.size_x ||
           ciy >= p.size_y || ciz >= p.size_z) {
-        miss = true;
+        if (ZEDGES && cix >= 0 && ciy >= 0 && cix < p.size_x &&
+            ciy < p.size_y) {
+          // an interior slab face is a handoff, not a miss
+          if (ciz < 0 && !z_first) exit_phase = PHASE_EXIT_LO;
+          if (ciz >= p.size_z && !z_last) exit_phase = PHASE_EXIT_HI;
+        }
+        miss = exit_phase == 0;
         break;
       }
       if ((word >> brick_bit(p, cix, ciy, ciz)) & 1u) {
@@ -366,13 +402,15 @@ __device__ __forceinline__ unsigned superstep(
     if (stepped) fl &= ~(1u << PR_SH);
     if (hit) fl = set_field(fl, PH_SH, PH_W, PHASE_HIT);
     if (miss) fl = set_field(fl, PH_SH, PH_W, PHASE_MISS);
+    if (ZEDGES && exit_phase != 0)
+      fl = set_field(fl, PH_SH, PH_W, (uint32_t)exit_phase);
     dirty |= DIRTY_CELL | DIRTY_ITS;
   }
   r.fl = fl;
   return dirty;
 }
 
-template <bool SLIM>
+template <bool SLIM, bool ZEDGES>
 __global__ void __launch_bounds__(BLOCK) trace_kernel(
     TraceParams p, const uint32_t* __restrict__ table,
     const float* __restrict__ sky_y, float* __restrict__ px,
@@ -384,7 +422,8 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(
     const float* __restrict__ ddxa, const float* __restrict__ ddya,
     const float* __restrict__ ddza, const int* __restrict__ stxa,
     const int* __restrict__ stya, const int* __restrict__ stza, int n,
-    int step_cap, int check_every, int* __restrict__ scratch) {
+    int step_cap, int check_every, int z_first, int z_last,
+    int* __restrict__ scratch) {
   const int lane = (int)(threadIdx.x & 31u);
   const unsigned below = (1u << lane) - 1u;  // the lanes ranked before this
   const bool has_sky = sky_y != nullptr;
@@ -453,7 +492,8 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(
       continue;
     }
     if (ray >= 0) {
-      dirty |= superstep<SLIM>(p, table, has_sky, sky, d, r);
+      dirty |= superstep<SLIM, ZEDGES>(p, table, has_sky, sky, z_first != 0,
+                                       z_last != 0, d, r);
       ++count;
       const bool retired = (int)get_field(r.fl, PH_SH, PH_W) >= PHASE_MISS;
       if (retired || count >= step_cap) {
@@ -485,9 +525,9 @@ __global__ void __launch_bounds__(BLOCK) trace_kernel(
   if (lane == 0 && warp_steps > 0) atomicMax(scratch + 1, warp_steps);
 }
 
-// The number of trace_kernel<SLIM> blocks that fill the current device:
-// resident blocks per SM times SMs (cached per device and variant).
-template <bool SLIM>
+// The number of trace_kernel<SLIM, ZEDGES> blocks that fill the current
+// device: resident blocks per SM times SMs (cached per device and variant).
+template <bool SLIM, bool ZEDGES>
 cudaError_t full_grid(int* grid) {
   static int cached[64] = {0};
   int dev = 0;
@@ -500,7 +540,7 @@ cudaError_t full_grid(int* grid) {
   }
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, trace_kernel<SLIM>, BLOCK, 0);
+      &per_sm, trace_kernel<SLIM, ZEDGES>, BLOCK, 0);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -510,47 +550,54 @@ cudaError_t full_grid(int* grid) {
   return cudaSuccess;
 }
 
-template <bool SLIM>
+template <bool SLIM, bool ZEDGES>
 cudaError_t launch_trace(
     TraceParams p, const void* table, const void* sky_y, void* px, void* py,
     void* pz, void* ix, void* iy, void* iz, void* flags, void* its, void* tmx,
     void* tmy, void* tmz, const void* dx, const void* dy, const void* dz,
     const void* ddx, const void* ddy, const void* ddz, const void* stx,
     const void* sty, const void* stz, int n, int step_cap, int check_every,
-    void* scratch, cudaStream_t st) {
+    int z_first, int z_last, void* scratch, cudaStream_t st) {
   int fill = 0;
-  cudaError_t err = full_grid<SLIM>(&fill);
+  cudaError_t err = full_grid<SLIM, ZEDGES>(&fill);
   if (err != cudaSuccess) return err;
   const int needed = (n + BLOCK - 1) / BLOCK;
   const int grid = needed < fill ? needed : fill;
-  trace_kernel<SLIM><<<grid, BLOCK, 0, st>>>(
+  trace_kernel<SLIM, ZEDGES><<<grid, BLOCK, 0, st>>>(
       p, (const uint32_t*)table, (const float*)sky_y, (float*)px, (float*)py,
       (float*)pz, (int*)ix, (int*)iy, (int*)iz, (int*)flags, (int*)its,
       (float*)tmx, (float*)tmy, (float*)tmz, (const float*)dx,
       (const float*)dy, (const float*)dz, (const float*)ddx,
       (const float*)ddy, (const float*)ddz, (const int*)stx, (const int*)sty,
-      (const int*)stz, n, step_cap, check_every, (int*)scratch);
+      (const int*)stz, n, step_cap, check_every, z_first, z_last,
+      (int*)scratch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // scratch: 2 int32 on the device, [ray counter, steps]; zeroed here.
-// slim != 0 runs the slim-carry variant.
+// slim != 0 runs the slim-carry variant; zedges != 0 the volume-sharded
+// one, with z_first / z_last != 0 when the slab's low / high face is the
+// world's own.
 extern "C" int rvgrt_trace(
     TraceParams p, const void* table, const void* sky_y, void* px, void* py,
     void* pz, void* ix, void* iy, void* iz, void* flags, void* its, void* tmx,
     void* tmy, void* tmz, const void* dx, const void* dy, const void* dz,
     const void* ddx, const void* ddy, const void* ddz, const void* stx,
     const void* sty, const void* stz, int n, int step_cap, int check_every,
-    int slim, void* scratch, void* stream) {
+    int slim, int zedges, int z_first, int z_last, void* scratch,
+    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || step_cap <= 0) return 0;
   if (check_every < 1) check_every = 1;
-  auto launch = slim ? &launch_trace<true> : &launch_trace<false>;
+  auto launch = zedges ? (slim ? &launch_trace<true, true>
+                               : &launch_trace<false, true>)
+                       : (slim ? &launch_trace<true, false>
+                               : &launch_trace<false, false>);
   return (int)launch(p, table, sky_y, px, py, pz, ix, iy, iz, flags, its,
                      tmx, tmy, tmz, dx, dy, dz, ddx, ddy, ddz, stx, sty, stz,
-                     n, step_cap, check_every, scratch, st);
+                     n, step_cap, check_every, z_first, z_last, scratch, st);
 }

@@ -304,7 +304,8 @@ def update_gi(gi: torch.Tensor, bits, sdf, atlas, ecfg: EngineConfig,
     new_b = new_b + adds[2]
 
     # EMA blend into the previous quantized value (lines 339-354)
-    prev_words = gi[offset:offset + n].reshape(idx.shape)
+    start = window_start(offset, n, gi.shape[0])
+    prev_words = gi[start:start + n].reshape(idx.shape)
     pr, pg, pb, _ = gi_grid.unpack_rgba8(prev_words)
     lr = lcfg.gi_learning_rate
     fr = pr + (new_r - pr) * lr
@@ -313,12 +314,20 @@ def update_gi(gi: torch.Tensor, bits, sdf, atlas, ecfg: EngineConfig,
     packed = gi_grid.pack_rgba8(fr, fg, fb)
     packed = torch.where(inside, prev_words, packed)
     new_gi = gi.clone()
-    new_gi[offset:offset + n] = packed.reshape(-1)
+    new_gi[start:start + n] = packed.reshape(-1)
     if return_stats:
         overflow = (shadow.degraded.sum(dtype=_I32)
                     + bounce.degraded.sum(dtype=_I32))
         return new_gi, {"straggler_overflow": overflow}
     return new_gi
+
+
+def window_start(offset: int, n: int, cells: int) -> int:
+    """Where an ``n``-cell window at ``offset`` is read and written: the
+    start clamped into the grid, as JAX's ``dynamic_slice`` /
+    ``dynamic_update_slice`` clamp it (a window that runs past the last
+    cell lands on the grid's last ``n`` cells)."""
+    return min(max(int(offset), 0), cells - n)
 
 
 def gi_delta(prev: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

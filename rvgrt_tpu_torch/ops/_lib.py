@@ -122,7 +122,7 @@ def _declare(lib) -> None:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "rvgrt_error_string": ([ci], ctypes.c_char_p),
-        "rvgrt_trace": ([trace_params_type()] + [vp] * 22 + [ci] * 4
+        "rvgrt_trace": ([trace_params_type()] + [vp] * 22 + [ci] * 7
                         + [vp, vp], ci),
         "rvgrt_warp_bilinear": ([vp] * 4 + [ci, ci, cll, vp], ci),
         "rvgrt_minconv_mid": ([vp, vp, ci, ci, cll, ci, vp], ci),

@@ -26,8 +26,15 @@ the CPU.  ``fused_superstep`` is the same kernel with a budget of one
 superstep (the per-superstep check).  ``rcfg.slim_carry`` picks the
 kernel's slim variant, which recomputes tMax from the DDA-entry position
 and the cell at every superstep and neither loads nor stores the tMax
-words (``wavefront.recompute_tmax``).  There is no fallback: a CUDA tensor
-the kernel does not take raises.  ``launches`` counts kernel launches.
+words (``wavefront.recompute_tmax``); ``z_edges`` (the volume-sharded
+mode's (is_first, is_last) host bools) picks its ZEDGES variant, which
+retires a ray leaving the slab through an interior z face as
+``PHASE_EXIT_LO`` / ``HI``.  The four instantiations (carried or slim,
+with or without ``z_edges``) share every other line.  There is no
+fallback: a CUDA tensor the kernel does not take raises.  ``launches``
+counts kernel launches, and ``slim_launches``, ``zedges_launches`` and
+``zedges_slim_launches`` those of three of the instantiations among them
+(the carried one without ``z_edges`` has the rest).
 """
 
 from __future__ import annotations
@@ -37,25 +44,31 @@ import functools
 import torch
 
 launches = 0
+slim_launches = 0
+zedges_launches = 0
+zedges_slim_launches = 0
 
 
-def superstep_plain(cfg, rcfg, table, dirs, s, sky_y=None):
+def superstep_plain(cfg, rcfg, table, dirs, s, sky_y=None, z_edges=None):
     """One whole superstep in plain PyTorch: pregather, the clamped gather,
     update (under ``rcfg.slim_carry`` with tMax recomputed from the state
     and not stored).  Returns the next state dict (``s`` is not
     modified)."""
     from rvgrt_tpu_torch.trace import wavefront as wf
 
-    pre = wf._superstep_pregather(cfg, rcfg, dirs, s, sky_y=sky_y)
+    pre = wf._superstep_pregather(cfg, rcfg, dirs, s, sky_y=sky_y,
+                                  z_edges=z_edges)
     word = table[pre["widx"].long()]
     if rcfg.slim_carry:
         return wf._superstep_update(cfg, rcfg, dirs, s, pre, word,
                                     tm=wf.slim_tmax(s, dirs),
-                                    carry_tm=False)
-    return wf._superstep_update(cfg, rcfg, dirs, s, pre, word)
+                                    carry_tm=False, z_edges=z_edges)
+    return wf._superstep_update(cfg, rcfg, dirs, s, pre, word,
+                                z_edges=z_edges)
 
 
-def trace_plain(cfg, rcfg, table, dirs, s, sky_y=None) -> torch.Tensor:
+def trace_plain(cfg, rcfg, table, dirs, s, sky_y=None,
+                z_edges=None) -> torch.Tensor:
     """The whole trace in plain PyTorch, in place on ``s``: batches of
     ``steps_per_check`` supersteps while a lane is live and fewer than
     ``max_supersteps`` ran (the JAX tracer's while loop).  Returns the
@@ -66,7 +79,8 @@ def trace_plain(cfg, rcfg, table, dirs, s, sky_y=None) -> torch.Tensor:
     step = 0
     while step < rcfg.max_supersteps and wf.any_live(s["flags"]):
         for _ in range(k):
-            s.update(superstep_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y))
+            s.update(superstep_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y,
+                                     z_edges=z_edges))
         step += k
     return torch.tensor(step, dtype=torch.int32, device=s["flags"].device)
 
@@ -78,28 +92,35 @@ def step_cap(rcfg) -> int:
     return max(-(-rcfg.max_supersteps // k) * k, 0)
 
 
-def trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=None) -> torch.Tensor:
+def trace_supersteps(cfg, rcfg, table, dirs, s, sky_y=None,
+                     z_edges=None) -> torch.Tensor:
     """Run the whole trace on the state dict ``s``, in place; return the
     supersteps it ran (0-d int32 tensor on the table's device, the same
     value as ``trace_plain``'s).
 
     ``dirs`` = (dx, dy, dz, ddx, ddy, ddz, stx, sty, stz) per-lane
     invariants; ``s`` holds ``wavefront.STATE_KEYS``; ``sky_y`` an optional
-    0-d float32 tensor.  On a CUDA table: one kernel launch, no host read."""
+    0-d float32 tensor; ``z_edges`` None or the (is_first, is_last) host
+    bools of the volume-sharded mode.  On a CUDA table: one kernel launch,
+    no host read."""
     if table.device.type == "cpu":
-        return trace_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y)
-    return _launch(cfg, rcfg, table, dirs, s, sky_y, step_cap(rcfg),
+        return trace_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y,
+                           z_edges=z_edges)
+    return _launch(cfg, rcfg, table, dirs, s, sky_y, z_edges, step_cap(rcfg),
                    max(rcfg.steps_per_check, 1), "trace_supersteps")
 
 
-def fused_superstep(cfg, rcfg, table, dirs, s, sky_y=None) -> None:
+def fused_superstep(cfg, rcfg, table, dirs, s, sky_y=None,
+                    z_edges=None) -> None:
     """Advance the state dict ``s`` by one superstep, in place: the kernel
     with a budget of one superstep per lane on a CUDA table,
     ``superstep_plain`` on a CPU one."""
     if table.device.type == "cpu":
-        s.update(superstep_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y))
+        s.update(superstep_plain(cfg, rcfg, table, dirs, s, sky_y=sky_y,
+                                 z_edges=z_edges))
         return
-    _launch(cfg, rcfg, table, dirs, s, sky_y, 1, 1, "fused_superstep")
+    _launch(cfg, rcfg, table, dirs, s, sky_y, z_edges, 1, 1,
+            "fused_superstep")
 
 
 @functools.lru_cache(maxsize=16)
@@ -127,12 +148,12 @@ def _params(cfg, rcfg):
     return _lib.trace_params_type()(**vals)
 
 
-def _launch(cfg, rcfg, table, dirs, s, sky_y, cap: int, check_every: int,
-            what: str) -> torch.Tensor:
+def _launch(cfg, rcfg, table, dirs, s, sky_y, z_edges, cap: int,
+            check_every: int, what: str) -> torch.Tensor:
     from rvgrt_tpu_torch.ops import _lib
     from rvgrt_tpu_torch.trace.wavefront import STATE_KEYS
 
-    global launches
+    global launches, slim_launches, zedges_launches, zedges_slim_launches
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: table on {dev}")
@@ -154,11 +175,20 @@ def _launch(cfg, rcfg, table, dirs, s, sky_y, cap: int, check_every: int,
     # [ray counter, steps], zeroed on the stream by the C entry point
     scratch = torch.empty(2, dtype=i32, device=dev)
     fn = _lib.library().rvgrt_trace
+    slim, zedges = bool(rcfg.slim_carry), z_edges is not None
+    first, last = (bool(z_edges[0]), bool(z_edges[1])) if zedges \
+        else (False, False)
     if n > 0 and cap > 0:
         launches += 1
+        if slim and zedges:
+            zedges_slim_launches += 1
+        elif zedges:
+            zedges_launches += 1
+        elif slim:
+            slim_launches += 1
     _lib.check(fn(_params(cfg, rcfg), table.data_ptr(), sky_ptr,
                   *(s[k].data_ptr() for k in STATE_KEYS),
                   *(a.data_ptr() for a in dirs), n, cap, check_every,
-                  int(rcfg.slim_carry), scratch.data_ptr(),
-                  _lib.stream_ptr(dev)), what)
+                  int(slim), int(zedges), int(first), int(last),
+                  scratch.data_ptr(), _lib.stream_ptr(dev)), what)
     return scratch[1]

@@ -48,8 +48,17 @@ neither read nor written.  The recomputed value differs from the carried
 one by rounding, so the two modes give different hits, as in the JAX
 package; K1 has a compile-time variant for it.
 
-Not ported yet: the volume-sharded ``z_edges`` mode (``trace`` raises on
-it).
+Volume-sharded tracing (``z_edges``, ``parallel/volume.py``): the world is
+a z-slab of a larger one, and a ray that leaves the slab through an
+interior z face retires as ``PHASE_EXIT_LO`` / ``PHASE_EXIT_HI`` with its
+exit position in the payload (``exit_dir`` -1 / +1), to be handed to the
+neighbouring slab; leaving through the world's own first or last face
+stays a miss.  The checks sit where the sky test, the sphere's bounds test
+and the DDA's bounds test are, at init, in the sphere phase (the mask
+forced to NONE, so the payload is the sphere position) and in the DDA
+substeps (the entry point of the first cell outside the slab).  The
+respite is off in this mode, as in the JAX package.  K1 has a compile-time
+variant for it.
 """
 
 from __future__ import annotations
@@ -69,6 +78,10 @@ PHASE_SPHERE = 0
 PHASE_DDA = 1
 PHASE_MISS = 2
 PHASE_HIT = 3
+# volume-sharded tracing only (z_edges given): the ray left this slab
+# through its low / high z face and goes to the neighbouring slab
+PHASE_EXIT_LO = 4
+PHASE_EXIT_HI = 5
 
 MASK_X = 0
 MASK_Y = 1
@@ -190,11 +203,25 @@ def _brick_word_index(cfg: WorldConfig, vx, vy, vz):
     return wi, (x & 3) | ((y & 1) << 2) | ((z & 3) << 3)
 
 
+def _slab_exits(z_edges, xy_in, z_lo, z_hi):
+    """(exit low, exit high) masks of the lanes ``xy_in`` whose z is below
+    (``z_lo``) or above (``z_hi``) the slab; ``z_edges`` = (is_first,
+    is_last) host bools: the world's own faces are misses, not exits."""
+    lo = xy_in & z_lo
+    hi = xy_in & z_hi
+    if z_edges[0]:
+        lo = torch.zeros_like(lo)
+    if z_edges[1]:
+        hi = torch.zeros_like(hi)
+    return lo, hi
+
+
 def _superstep_pregather(cfg: WorldConfig, rcfg: RenderConfig, dirs, s,
-                         sky_y=None):
+                         sky_y=None, z_edges=None):
     """Superstep front half: retirement masks + THE gather's table index
     over the state ``s`` and the direction invariants ``dirs`` = (dx, dy,
-    dz, ddx, ddy, ddz, stx, sty, stz)."""
+    dz, ddx, ddy, ddz, stx, sty, stz).  ``z_edges``: (is_first, is_last)
+    host bools of the volume-sharded mode."""
     dy = dirs[1]
     probe_mask = rcfg.sdf_probe_interval - 1  # power of two
     flags = s["flags"]
@@ -209,6 +236,22 @@ def _superstep_pregather(cfg: WorldConfig, rcfg: RenderConfig, dirs, s,
         in_sphere = in_sphere & ~sky_out
         flags = torch.where(sky_out,
                             _set(flags, _PH_SH, _PH_W, PHASE_MISS), flags)
+    if z_edges is not None:
+        # an interior slab face hands the ray on instead of missing; x/y
+        # (or an edge slab's z) overflow stays a real miss
+        xy_in = ((s["px"] >= 0) & (s["py"] >= 0)
+                 & (s["px"] < cfg.size_x) & (s["py"] < cfg.size_y))
+        exit_lo, exit_hi = _slab_exits(z_edges, in_sphere & xy_in,
+                                       s["pz"] < 0, s["pz"] >= cfg.size_z)
+        sp_exit = exit_lo | exit_hi
+        in_sphere = in_sphere & ~sp_exit
+        flags = torch.where(exit_lo,
+                            _set(flags, _PH_SH, _PH_W, PHASE_EXIT_LO), flags)
+        flags = torch.where(exit_hi,
+                            _set(flags, _PH_SH, _PH_W, PHASE_EXIT_HI), flags)
+        # a sphere exit carries its position itself (mask NONE)
+        flags = torch.where(sp_exit,
+                            _set(flags, _MK_SH, _MK_W, MASK_NONE), flags)
     in_dda = phase == PHASE_DDA
     # probe superstep: reference's (i & 7) == 7 SDF re-check (line 127)
     probe_turn = in_dda & ((dda_i & probe_mask) == probe_mask) \
@@ -250,12 +293,13 @@ def slim_tmax(s, dirs):
 
 
 def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
-                      word, tm=None, carry_tm: bool = True):
+                      word, tm=None, carry_tm: bool = True, z_edges=None):
     """Superstep back half: the masked state machine over the gathered
     ``word`` (sphere march / SDF probe+jump / DDA brick substeps).  ``tm``
     is (tmx, tmy, tmz), the state's carried words when None;
     ``carry_tm=False`` (slim carry) leaves the tMax words of the state as
-    they are.  Returns the next state."""
+    they are; ``z_edges`` as in ``_superstep_pregather``.  Returns the
+    next state."""
     dx, dy, dz, ddx, ddy, ddz, stx, sty, stz = dirs
     if tm is None:
         tm = (s["tmx"], s["tmy"], s["tmz"])
@@ -357,12 +401,23 @@ def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
     l_its = ns["its"]
     false = torch.zeros_like(action_turn)
     hit_acc, miss_acc, stepped = false, false, false
+    dda_exit_lo, dda_exit_hi = false, false
     act = action_turn
     for _k in range(max(rcfg.dda_substeps, 1)):
         l_its = torch.where(act, l_its + 1, l_its)  # loop-top its++
         oob_k = act & ((l_ix < 0) | (l_iy < 0) | (l_iz < 0)
                        | (l_ix >= size_x) | (l_iy >= size_y)
                        | (l_iz >= size_z))
+        if z_edges is not None:
+            # an interior slab face is a handoff, not a miss
+            xy_in = ((l_ix >= 0) & (l_iy >= 0)
+                     & (l_ix < size_x) & (l_iy < size_y))
+            ex_lo, ex_hi = _slab_exits(z_edges, act & xy_in, l_iz < 0,
+                                       l_iz >= size_z)
+            dda_exit_lo = dda_exit_lo | ex_lo
+            dda_exit_hi = dda_exit_hi | ex_hi
+            oob_k = oob_k & ~(ex_lo | ex_hi)
+            act = act & ~(ex_lo | ex_hi)
         miss_acc = miss_acc | oob_k
         act = act & ~oob_k
         _, bitpos_k = _brick_word_index(cfg, l_ix, l_iy, l_iz)
@@ -408,6 +463,13 @@ def _superstep_update(cfg: WorldConfig, rcfg: RenderConfig, dirs, s, pre,
                          nflags)
     nflags = torch.where(miss_acc, _set(nflags, _PH_SH, _PH_W, PHASE_MISS),
                          nflags)
+    if z_edges is not None:
+        nflags = torch.where(dda_exit_lo,
+                             _set(nflags, _PH_SH, _PH_W, PHASE_EXIT_LO),
+                             nflags)
+        nflags = torch.where(dda_exit_hi,
+                             _set(nflags, _PH_SH, _PH_W, PHASE_EXIT_HI),
+                             nflags)
     ns["flags"] = nflags
     return ns
 
@@ -430,12 +492,15 @@ def trace(bits, sdf, cfg: WorldConfig, rcfg: RenderConfig,
     ``table``: the combined gather table (built from bits/sdf if None).
     With ``rcfg.straggler_budget > 0`` and at least ``RESPITE_MIN_RAYS``
     rays the trace runs in two phases (``_trace_two_phase``), both with
-    ``rcfg.slim_carry``.  ``z_edges`` (the volume-sharded mode) is not
-    ported: any value but None raises ``NotImplementedError``.
+    ``rcfg.slim_carry``.  ``z_edges``: the volume-sharded mode
+    (``parallel/volume.py``), a pair of host bools (is_first, is_last):
+    leaving the slab in -z / +z is a miss only on the first / last slab;
+    elsewhere the ray retires as ``PHASE_EXIT_LO`` / ``HI`` with its exit
+    position in the payload and ``exit_dir`` -1 / +1.  The respite is off
+    in this mode.
     """
     if z_edges is not None:
-        raise NotImplementedError(
-            "wavefront.trace: the volume-sharded z_edges mode is not ported")
+        z_edges = (bool(z_edges[0]), bool(z_edges[1]))
     if table is None:
         table = make_trace_table(bits, sdf, cfg)
     dev = table.device
@@ -443,25 +508,27 @@ def trace(bits, sdf, cfg: WorldConfig, rcfg: RenderConfig,
            for a in (ox, oy, oz, dx, dy, dz, t_start)]
     shape = torch.broadcast_shapes(*(a.shape for a in ins))
     flat = [a.broadcast_to(shape).reshape(-1).contiguous() for a in ins]
-    if rcfg.straggler_budget > 0 and flat[0].numel() >= RESPITE_MIN_RAYS:
+    if (rcfg.straggler_budget > 0 and z_edges is None
+            and flat[0].numel() >= RESPITE_MIN_RAYS):
         res = _trace_two_phase(table, cfg, rcfg, flat, quantize_start_fp16,
                                sky_y)
     else:
         res = _trace_impl(table, cfg, rcfg, *flat,
                           quantize_start_fp16=quantize_start_fp16,
-                          sky_y=sky_y)
+                          sky_y=sky_y, z_edges=z_edges)
     return TraceResult(*(r.reshape(shape) for r in res))
 
 
 def _trace_impl(table, cfg: WorldConfig, rcfg: RenderConfig,
                 ox, oy, oz, dx, dy, dz, t0,
                 quantize_start_fp16: bool, sky_y=None,
-                resume: bool = False) -> TraceResult:
+                resume: bool = False, z_edges=None) -> TraceResult:
     s, dirs = start_state(cfg, ox, oy, oz, dx, dy, dz, t0,
-                          quantize_start_fp16, sky_y=sky_y)
-    steps = run_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y)
+                          quantize_start_fp16, sky_y=sky_y, z_edges=z_edges)
+    steps = run_supersteps(cfg, rcfg, table, dirs, s, sky_y=sky_y,
+                           z_edges=z_edges)
     return _payload(s, dirs, ox, oy, oz, steps, resume=resume,
-                    slim=rcfg.slim_carry)
+                    slim=rcfg.slim_carry, z_edges=z_edges)
 
 
 def respite_slots(n: int, cap_frac: float) -> int:
@@ -542,11 +609,11 @@ def _trace_two_phase(table, cfg: WorldConfig, rcfg: RenderConfig, rays,
 
 
 def start_state(cfg: WorldConfig, ox, oy, oz, dx, dy, dz, t0,
-                quantize_start_fp16: bool = True, sky_y=None):
+                quantize_start_fp16: bool = True, sky_y=None, z_edges=None):
     """The tracer's initial per-lane state and direction invariants for
     flat (N,) rays: ``(state dict, dirs)``, with init-time retirement of
-    sky-out and OOB starts (the phase/its the first supersteps would
-    give)."""
+    sky-out, slab-exit (``z_edges``) and OOB starts (the phase/its the
+    first supersteps would give)."""
     if quantize_start_fp16:
         t0 = t0.half().float()
 
@@ -567,7 +634,8 @@ def start_state(cfg: WorldConfig, ox, oy, oz, dx, dy, dz, t0,
     py0 = oy + t0 * dy
     pz0 = oz + t0 * dz
 
-    # sky first, then OOB (the order of the superstep body)
+    # sky first, then slab exits, then OOB (the order of the superstep
+    # body)
     ph0 = zi + PHASE_SPHERE
     its0 = zi + 1  # major-loop entry counts one (line 107)
     live0 = torch.ones_like(px0, dtype=torch.bool)
@@ -575,6 +643,13 @@ def start_state(cfg: WorldConfig, ox, oy, oz, dx, dy, dz, t0,
         sky0 = (dy >= 0) & (py0 >= sky_y)
         ph0 = torch.where(sky0, PHASE_MISS, ph0)
         live0 = live0 & ~sky0
+    if z_edges is not None:
+        xy_in0 = (px0 >= 0) & (py0 >= 0) & (px0 < size_x) & (py0 < size_y)
+        ex_lo0, ex_hi0 = _slab_exits(z_edges, live0 & xy_in0, pz0 < 0,
+                                     pz0 >= size_z)
+        ph0 = torch.where(ex_lo0, PHASE_EXIT_LO, ph0)
+        ph0 = torch.where(ex_hi0, PHASE_EXIT_HI, ph0)
+        live0 = live0 & ~(ex_lo0 | ex_hi0)
     oob0 = live0 & (
         (px0 < 0) | (py0 < 0) | (pz0 < 0)
         | (px0 >= size_x) | (py0 >= size_y) | (pz0 >= size_z))
@@ -592,7 +667,7 @@ def start_state(cfg: WorldConfig, ox, oy, oz, dx, dy, dz, t0,
 
 
 def run_supersteps(cfg: WorldConfig, rcfg: RenderConfig, table, dirs, s,
-                   sky_y=None) -> torch.Tensor:
+                   sky_y=None, z_edges=None) -> torch.Tensor:
     """Advance ``s`` in place until every lane has retired or
     ``max_supersteps`` ran, in batches of ``steps_per_check`` supersteps
     (``wavefront.py``'s while loop).  Returns the supersteps run, a 0-d
@@ -604,19 +679,22 @@ def run_supersteps(cfg: WorldConfig, rcfg: RenderConfig, table, dirs, s,
     from rvgrt_tpu_torch.ops import superstep_kernel
 
     steps = superstep_kernel.trace_supersteps(cfg, rcfg, table, dirs, s,
-                                              sky_y=sky_y)
+                                              sky_y=sky_y, z_edges=z_edges)
     stats["traces"] += 1
     stats["supersteps"] = stats["supersteps"] + steps
     return steps
 
 
 def _payload(s, dirs, ox, oy, oz, steps, resume: bool = False,
-             slim: bool = False) -> TraceResult:
+             slim: bool = False, z_edges=None) -> TraceResult:
     """The hit payload reconstructed from the final state, with tMax
     recomputed from the state under ``slim`` carry.  ``resume``
     (phase 1 of the respite): a lane still in SPHERE or DDA keeps a
     position, its resume point - a sphere lane's current position, a DDA
-    lane's current cell entry point - with ``exit_dir`` 2 or 3."""
+    lane's current cell entry point - with ``exit_dir`` 2 or 3.  With
+    ``z_edges`` an exit lane keeps its exit position (the sphere position,
+    or the entry point of the first cell outside the slab) with
+    ``exit_dir`` -1 / +1."""
     dx, dy, dz, ddx, ddy, ddz, stx, sty, stz = dirs
     # ---------------- post-loop hit payload ----------------
     flags = s["flags"]
@@ -654,7 +732,13 @@ def _payload(s, dirs, ox, oy, oz, steps, resume: bool = False,
     uvv = torch.where(m == MASK_X, uvv_x,
                       torch.where(m == MASK_Y, hz - fz_,
                                   torch.where(m == MASK_Z, hy - fy_, 0.0)))
-    if resume:
+    if z_edges is not None:
+        exit_lo = phase == PHASE_EXIT_LO
+        exit_hi = phase == PHASE_EXIT_HI
+        keep = hit | exit_lo | exit_hi
+        exit_dir = torch.where(exit_lo, -1, torch.where(exit_hi, 1, 0)
+                               ).to(_I32)
+    elif resume:
         unf_sphere = phase == PHASE_SPHERE
         unf_dda = phase == PHASE_DDA
         hx = torch.where(unf_sphere, s["px"], hx)

@@ -26,8 +26,9 @@ with motion-vector reprojection + neighborhood variance clipping.
   confidence drops where geometry appeared or vanished.
 
 The same accumulator runs at scale 1 as native-resolution reconstruction
-(``bench.py``'s config-4).  ``temporal_upscale_slab`` (the sharded slab)
-is not ported; it comes with ``parallel/``.
+(``bench.py``'s config-4).  ``temporal_upscale_slab`` is one display-row
+slab of the 3x upscale, the unit ``parallel/`` shards; ``pack_state`` is
+the packed RGBN word its state travels as between ranks.
 """
 
 from __future__ import annotations
@@ -314,6 +315,146 @@ def _current_weight(jitter_ndc: torch.Tensor, height: int, width: int,
     w = torch.exp(-d2 / (2.0 * sigma * sigma))
     w = w_min + (1.0 - w_min) * w
     return w.repeat(height, width)  # (scale*h, scale*w)
+
+
+def pack_state(state: TemporalState) -> torch.Tensor:
+    """(H, W) u32 RGBN words (as int32): the wire and replication format
+    of the temporal state.  Lossless for the accumulator: the warp reads
+    the history through this quantization anyway (``warp_inputs`` packs
+    before gathering), so carrying the packed word between frames gives
+    the same warps as carrying the float32 history."""
+    return _pack_rgbn(state.history, state.conf)
+
+
+def temporal_upscale_slab(color_halo: torch.Tensor,
+                          motion_halo: torch.Tensor,
+                          jitter_ndc: torch.Tensor, packed_full: torch.Tensor,
+                          lo0: int, n_lo: int, *,
+                          sigma: float = 0.9, w_min: float = 0.08,
+                          warp_taps: str = "bilinear_shift",
+                          motion_decay: float = 0.35,
+                          gamma_static: float = 1.5,
+                          gamma_moving: float = 0.6,
+                          beta_static: float = 8.0,
+                          beta_moving: float = 40.0,
+                          adapt_rate: float = 8.0):
+    """One display-row slab of the 3x ``temporal_upscale`` (the unit that
+    ``parallel/sharding.py`` shards).
+
+    ``color_halo``: low-res rows [lo0-1, lo0+n_lo+2) of the frame (n_lo+3
+    rows), edge-clamped by the caller; the halo absorbs the phase filter's
+    y shifts and the 3x3 rectification box.  ``motion_halo``: rows
+    [lo0-1, lo0+n_lo+1) (n_lo+2 rows, edge-clamped): the bottom halo row
+    feeds the shift warp's +1-row tap at the slab seam, both halo rows the
+    motion dilation.  ``packed_full``: the whole previous packed state
+    (the warp gathers along arbitrary motion).  ``lo0``: the slab's first
+    low-res row (a host int).  Returns ``(out_slab, packed_slab)`` for
+    display rows [3*lo0, 3*(lo0+n_lo)); the packed slabs assembled are the
+    next ``packed_full``.  ``warp_taps``: ``"pallas"`` (kernel K2 on a CUDA
+    device, its plain version on the CPU), ``"bilinear"`` (the plain
+    version), anything else the one-gather ``"bilinear_shift"``."""
+    from rvgrt_tpu_torch.ops import warp_kernels
+
+    hh, hw = packed_full.shape
+    w = color_halo.shape[1]
+    slab_h = SCALE * n_lo
+    h_full = hh // SCALE
+    dev = color_halo.device
+
+    # --- current frame: jitter upsample of the halo'd slab; the y jitter
+    # is rescaled so the slab sees the full frame's pixel offset ---
+    j_slab = torch.stack([jitter_ndc[0],
+                          jitter_ndc[1] * f32(h_full / color_halo.shape[0])
+                          .to(dev)])
+    cur = jitter_upsample(color_halo, j_slab)[:, SCALE:SCALE + slab_h]
+
+    # --- warp the full packed history into this slab (a +1-row halo for
+    # the shift warp's output-space y shift) ---
+    y0_d = float(lo0 * SCALE)
+    mv_w = motion_halo[1:]  # rows lo0 .. lo0+n_lo (n_lo+1)
+    mvx = _nearest_up(mv_w[..., 0], SCALE)[:slab_h + 1]
+    mvy = _nearest_up(mv_w[..., 1], SCALE)[:slab_h + 1]
+    gy = y0_d + torch.arange(slab_h + 1, dtype=_F32, device=dev)[:, None]
+    gy = torch.clamp_max(gy, float(hh - 1))
+    xs = torch.arange(hw, dtype=_F32, device=dev)[None, :] \
+        - mvx * (0.5 * hw)
+    ys = gy - mvy * (0.5 * hh)
+    inside = ((xs >= 0.0) & (xs <= hw - 1.0)
+              & (ys >= 0.0) & (ys <= hh - 1.0)).to(_F32)
+    mx_ = mvx * (0.5 * hw)
+    my_ = mvy * (0.5 * hh)
+    inside = inside * torch.exp(-torch.sqrt(mx_ * mx_ + my_ * my_)
+                                * motion_decay)
+    x = torch.clamp(xs, 0.0, hw - 1.0)
+    y = torch.clamp(ys, 0.0, hh - 1.0)
+    if warp_taps in ("pallas", "bilinear"):
+        # the true 4-tap warp; the y+1 taps are gathered, so the shift
+        # path's +1-row halo is unused
+        x_s, y_s = x[:slab_h], y[:slab_h]
+        if warp_taps == "pallas":
+            # whole 8-row tiles, as the TPU kernel takes them
+            pad = (-slab_h) % 8
+            if pad:
+                x_s = torch.cat([x_s, x_s[-1:].expand(pad, -1)])
+                y_s = torch.cat([y_s, y_s[-1:].expand(pad, -1)])
+            planes, _ = warp_kernels.warp_packed_bilinear(
+                packed_full, x_s.contiguous(), y_s.contiguous())
+            planes = planes[:, :slab_h]
+        else:
+            planes, _ = warp_kernels.warp_packed_bilinear_plain(
+                packed_full, x_s, y_s)
+        hist = planes[:3]
+        n_prev = planes[3] * _CONF_MAX * inside[:-1]
+    else:  # "bilinear_shift": one gather + output-space shifted +1 taps
+        x0 = torch.floor(x).to(_I32)
+        y0i = torch.floor(y).to(_I32)
+        fx = (x - x0.to(_F32))[None]
+        fy = (y - y0i.to(_F32))[None]
+        rgb00, n00 = _unpack_rgbn_cf(packed_full[y0i.long(), x0.long()])
+        v00 = torch.cat([rgb00, n00[None]], dim=0)
+        v01 = _shift_cf(v00, 1, axis=2)
+        v10 = v00[:, 1:]
+        v11 = v01[:, 1:]
+        v00i = v00[:, :-1]
+        v01i = v01[:, :-1]
+        fx_i = fx[:, :-1]
+        fy_i = fy[:, :-1]
+        v = ((1 - fx_i) * (1 - fy_i) * v00i + fx_i * (1 - fy_i) * v01i
+             + (1 - fx_i) * fy_i * v10 + fx_i * fy_i * v11)
+        hist, n_prev = v[:3], v[3] * inside[:-1]
+
+    # --- motion-adaptive rectification (dilated over the true halo) ---
+    m0 = motion_halo[..., 0] * (0.5 * hw)
+    m1 = motion_halo[..., 1] * (0.5 * hh)
+    m = torch.sqrt(m0 * m0 + m1 * m1)[None]
+    for ax in (1, 2):
+        m = torch.maximum(m, torch.maximum(_shift_cf(m, 1, axis=ax),
+                                           _shift_cf(m, -1, axis=ax)))
+    a_h = 1.0 - torch.exp(-m[0] * adapt_rate)  # rows lo0-1 .. lo0+n_lo
+    g_h = gamma_static + (gamma_moving - gamma_static) * a_h
+    a_int = a_h[1:1 + n_lo]
+    beta = _nearest_up(beta_static + (beta_moving - beta_static) * a_int,
+                       SCALE)
+
+    mn_h, mx_h = _neighborhood_box(color_halo[:n_lo + 2], g_h)
+    mn = mn_h[:, SCALE:SCALE + slab_h]
+    mx = mx_h[:, SCALE:SCALE + slab_h]
+
+    clamped = torch.clamp(hist, mn - 0.01, mx + 0.01)
+    d = torch.abs(hist - clamped)
+    clamp_dist = (d[0] + d[1] + d[2]) / 3.0
+    n_w = n_prev * torch.exp(-clamp_dist * beta)
+
+    # the weight pattern is (SCALE, SCALE)-periodic and the slab starts at
+    # display row SCALE*lo0 (phase 0), so slab-local tiling is the global
+    # one; the axis offsets use the full frame's size
+    w_cur = _current_weight(jitter_ndc, h_full, w, sigma, w_min)[:slab_h]
+    den = n_w + w_cur
+    out_cf = (n_w[None] * clamped + w_cur[None] * cur) / den[None]
+    out_cf = torch.clamp(out_cf, 0.0, 1.0)
+    n_new = torch.clamp_max(den, _CONF_MAX)
+    out = out_cf.permute(1, 2, 0).contiguous()
+    return out, _pack_rgbn(out, n_new)
 
 
 def temporal_upscale(color: torch.Tensor, motion: torch.Tensor,

@@ -6,7 +6,8 @@ probe's flat clamped take and per-column take) at small shapes: a 64^3
 world built by the port, random rays, a random packed history, random
 tables and indices.  Also on the card against the CPU: the two-phase
 straggler respite (two K1 launches, no host read), checkerboard and
-quarter-rate frames, and the traced GI init.  Every test here
+quarter-rate frames, the traced GI init, and K1's volume-sharded ZEDGES
+variants on a z-slab of the world.  Every test here
 needs a CUDA GPU and skips without one (a CUDA kernel has no interpret
 mode).  The file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed; the suite's
@@ -249,6 +250,54 @@ def test_slim_trace_supersteps_matches_plain_state(cuda, worlds, cadence):
               "its", "t"):
         assert _bits_equal(getattr(res["cuda"], f).cpu(),
                            getattr(res["cpu"], f)), f
+
+
+@pytest.mark.parametrize("slim", [False, True], ids=["carried", "slim"])
+@pytest.mark.parametrize("edges", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+def test_zedges_trace_supersteps_matches_plain_state(cuda, worlds, edges,
+                                                     slim):
+    """K1's ZEDGES variants (one launch) on slab 1 of the world cut into 4
+    z-slabs: all 11 state arrays and ``steps`` bit-equal to the plain
+    loop's, rays leaving through each interior face; the traces' fields
+    and ``exit_dir`` equal the CPU's."""
+    from rvgrt_tpu_torch.parallel import volume
+
+    ecfg = _ecfg(**CADENCES["bench"], slim_carry=slim)
+    lcfg = volume.local_config(ecfg.world, 4)
+    res = {}
+    for dev, world in (("cuda", worlds[0]), ("cpu", worlds[1])):
+        table = volume.slab_table(world.bits, world.sdf, ecfg.world, 4, 1)
+        r = [torch.from_numpy(a).to(dev) for a in _rays((48 * 64,), 11)]
+        r[2] = r[2] * 0.25  # origins in the slab's 16 cells of depth
+        if dev == "cuda":
+            s, dirs = wavefront.start_state(lcfg, *r, sky_y=world.sky_y,
+                                            z_edges=edges)
+            sp = {k: v.clone() for k, v in s.items()}
+            want = superstep_kernel.trace_plain(
+                lcfg, ecfg.render, table, dirs, sp, sky_y=world.sky_y,
+                z_edges=edges)
+            n0 = superstep_kernel.zedges_slim_launches if slim \
+                else superstep_kernel.zedges_launches
+            got = superstep_kernel.trace_supersteps(
+                lcfg, ecfg.render, table, dirs, s, sky_y=world.sky_y,
+                z_edges=edges)
+            n1 = superstep_kernel.zedges_slim_launches if slim \
+                else superstep_kernel.zedges_launches
+            assert n1 - n0 == 1
+            assert int(got) == int(want) > 5
+            for k in wavefront.STATE_KEYS:
+                assert _bits_equal(s[k], sp[k]), k
+        res[dev] = wavefront.trace(None, None, lcfg, ecfg.render, *r,
+                                   table=table, sky_y=world.sky_y,
+                                   z_edges=edges)
+    for f in ("hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u", "uv_v",
+              "its", "t", "exit_dir"):
+        assert _bits_equal(getattr(res["cuda"], f).cpu(),
+                           getattr(res["cpu"], f)), f
+    ed = res["cpu"].exit_dir
+    assert bool((ed < 0).any()) != edges[0]
+    assert bool((ed > 0).any()) != edges[1]
 
 
 def _fan():

@@ -16,8 +16,11 @@ cap, bit-exact on every traced field and on ``degraded`` and ``exit_dir``,
 engaged at exactly 4 x 4096 rays and not one ray below; and the GI window's
 overflow count with the respite engaged.  Slim carry (tMax recomputed
 each superstep, ``RenderConfig.slim_carry``) at the bench cadence and
-through the respite's two phases, bit-exact against JAX's slim path.  The JAX side
-runs without FMA contraction (tests/torch_jaxref.py).
+through the respite's two phases, bit-exact against JAX's slim path.  The
+volume-sharded ``z_edges`` mode on one z-slab of the world, for all four
+(is_first, is_last) pairs, carried and slim, bit-exact on every field and
+on ``exit_dir``.  The JAX side runs without FMA contraction
+(tests/torch_jaxref.py).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from rvgrt_tpu_torch.core import u32
 from rvgrt_tpu_torch.driver import engine
 from rvgrt_tpu_torch.gi import update as gi_update
 from rvgrt_tpu_torch.ops import superstep_kernel
+from rvgrt_tpu_torch.parallel import volume
 from rvgrt_tpu_torch.trace import wavefront
 from tests import torch_jaxref as ref
 
@@ -60,6 +64,12 @@ RESPITE = {
     "below": (12, 0.25, {}),
 }
 FAN = (128, 128)
+# the volume-sharded mode: slab 1 of the world cut into 4 z-slabs of 16,
+# at the bench cadence, for every (is_first, is_last) pair
+Z_SLABS, Z_SLAB = 4, 1
+Z_SPEC = ref.merge_spec(ref.with_render(WORLD, **CADENCES["bench"]),
+                        {"world": dict(shift_z=4)})
+Z_EDGES = [(False, False), (True, False), (False, True), (True, True)]
 # a GI window of 16 384 cells (a 64^3 world with gi_coarseness 2: the grid's
 # upper half, the lower half is buried), budget 4 and a forced-tiny cap, so
 # that the window overflows
@@ -83,6 +93,29 @@ def _rays():
     o[:8, 0] = -3.0
     d[8:16] = np.array([0.0, 1.0, 0.0], np.float32)
     return [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t0]
+
+
+def _slab_rays():
+    """Rays from inside the slab (and 16 from just beyond each z face, which
+    exit or miss at init), every direction, so lanes leave through both
+    faces in both phases."""
+    rng = np.random.default_rng(11)
+    n = 3072
+    o = rng.uniform(1.0, 63.0, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(20.0, 62.0, n)
+    o[:, 2] = rng.uniform(0.0, 16.0, n)
+    o[:16, 2] = -0.5
+    o[16:32, 2] = 16.25
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True).astype(np.float32)
+    t0 = rng.uniform(0.0, 3.0, n).astype(np.float32)
+    return [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t0]
+
+
+def _slab_table(world):
+    w = engine.world_from_numpy(world, device="cpu")
+    cfg = ref.make_ecfg(tcfg, WORLD).world
+    return volume.slab_table(w.bits, w.sdf, cfg, Z_SLABS, Z_SLAB), w.sky_y
 
 
 def _spec(cadence, slim: bool = False):
@@ -167,6 +200,11 @@ def jax_ref():
                                        world=world, rays=rays,
                                        shape=rays[0].shape)))
         keys.append(("slim_respite", case))
+    table, sky_y = _slab_table(world)
+    jobs.append(("ref_trace_z_edges", dict(
+        spec=Z_SPEC, table=table.numpy(), sky_y=sky_y.numpy(),
+        rays=_slab_rays(), cases=Z_EDGES)))
+    keys.append("z_edges")
     gi_world = engine.world_to_numpy(engine.build_world(
         ref.make_ecfg(tcfg, GI_SPEC), verbose=False, device="cpu"))
     jobs.append(("ref_gi_updates", dict(spec=GI_SPEC, world=gi_world,
@@ -264,13 +302,28 @@ def test_slim_leaves_tmax_words_alone(jax_ref):
                                       err_msg=k)
 
 
-def test_z_edges_raises():
-    cfg = tcfg.WorldConfig().with_cube(6)
-    z = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="z_edges"):
-        wavefront.trace(None, None, cfg, tcfg.RenderConfig(), z, z, z, z,
-                        z + 1.0, z, z, table=torch.zeros(1, dtype=torch.int32),
-                        z_edges=(True, False))
+def test_z_edges_raises(jax_ref):
+    """The volume-sharded ``z_edges`` mode (named for the error the port
+    raised before it had the mode) on slab 1 of 4: for each (is_first,
+    is_last) pair, carried and slim, every traced field and ``exit_dir``
+    equal JAX's bit for bit; lanes leave through both interior faces, and
+    an edge face turns its exits into misses."""
+    table, sky_y = _slab_table(jax_ref["world"])
+    rays = [torch.from_numpy(a) for a in _slab_rays()]
+    for slim in (False, True):
+        ecfg = ref.make_ecfg(tcfg, ref.with_render(Z_SPEC, slim_carry=slim))
+        assert ecfg.world.size_z == 16
+        for edges in Z_EDGES:
+            res = wavefront.trace(None, None, ecfg.world, ecfg.render, *rays,
+                                  table=table, sky_y=sky_y, z_edges=edges)
+            want = jax_ref["z_edges"][(slim, *edges)]
+            for f in FIELDS + ("exit_dir",):
+                np.testing.assert_array_equal(
+                    getattr(res, f).numpy(), want[f],
+                    err_msg=f"{f} slim={slim} z_edges={edges}")
+            ed = want["exit_dir"]
+            assert (ed < 0).any() != edges[0] and (ed > 0).any() != edges[1]
+            assert want["hit"].any()
 
 
 def test_trace_capped_budget_bit_exact(jax_ref):

@@ -296,6 +296,37 @@ def ref_trace(spec, world, rays, shape):
         "t", "exit_dir", "degraded")}
 
 
+def ref_trace_z_edges(spec, table, sky_y, rays, cases, slims=(False, True)):
+    """``trace(z_edges=...)`` of flat rays against one z-slab's gather
+    table (``spec``'s world is the slab), for each ``(is_first, is_last)``
+    of ``cases`` and each slim-carry setting of ``slims``: one jit a
+    setting, the edge flags traced."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.trace import wavefront
+
+    out = {}
+    for slim in slims:
+        ecfg = make_ecfg(_cfg(), with_render(spec, slim_carry=slim))
+
+        @jax.jit
+        def run(tbl, sky, first, last, *r):
+            return wavefront.trace(None, None, ecfg.world, ecfg.render, *r,
+                                   table=tbl, sky_y=sky,
+                                   z_edges=(first, last))
+
+        args = [jnp.asarray(a) for a in rays]
+        for first, last in cases:
+            res = run(jnp.asarray(table), jnp.asarray(sky_y),
+                      jnp.asarray(first), jnp.asarray(last), *args)
+            out[(slim, first, last)] = {
+                f: np.asarray(getattr(res, f)) for f in (
+                    "hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u",
+                    "uv_v", "its", "t", "exit_dir")}
+    return out
+
+
 def ref_superstep(spec, world, state, dirs):
     """One superstep of the XLA body - the oracle of the fused Pallas
     kernel (tests/test_trace.py::test_fused_superstep_matches_xla)."""
@@ -351,6 +382,133 @@ def _camera_arrays(cam):
                up=cam["up"])
     return engine.camera_arrays(c, cam["vp"], cam["prev_vp"],
                                 cam["jitter"], cam["time"])
+
+
+def _frame_np(out):
+    return {k: np.asarray(v) for k, v in out._asdict().items()}
+
+
+def _mesh_jobs(mesh, spec, world, cam, gi_spec, gi_cases, render_fn, gi_fn,
+               gi_kw, include_gi=(True,)):
+    """Sharded frames (one for each ``include_gi``) and GI windows on
+    ``mesh``: ``render_fn`` / ``gi_fn`` are the ``parallel`` functions of
+    one tier."""
+    import jax.numpy as jnp
+
+    ecfg = make_ecfg(_cfg(), spec)
+    gi_ecfg = make_ecfg(_cfg(), gi_spec)
+    w = {k: jnp.asarray(v) for k, v in world.items()}
+    frames = {g: _frame_np(render_fn(
+        w["bits"], w["sdf"], w["gi"], w["atlas"], _camera_arrays(cam), ecfg,
+        mesh, include_gi=g, sky_y=w["sky_y"], table=w["trace_table"]))
+        for g in include_gi}
+    kw = dict(sky_y=w["sky_y"], table=w["trace_table"]) if gi_kw else {}
+    gis = [np.asarray(gi_fn(w["gi"], w["bits"], w["sdf"], w["atlas"],
+                            gi_ecfg, jnp.uint32(f), jnp.int32(off), mesh,
+                            **kw))
+           for f, off in gi_cases]
+    return dict(frame=frames, gi=gis)
+
+
+def _upscale_loop(fn, state, frames, mesh, taps):
+    """Two closed-loop frames of a sharded upscale from the packed
+    ``state``: each frame's output and packed state."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.upscale import temporal
+
+    packed = temporal.pack_state(temporal.TemporalState(
+        history=jnp.asarray(state["history"]),
+        conf=jnp.asarray(state["conf"])))
+    outs = []
+    for fr in frames:
+        out, packed = fn(jnp.asarray(fr["color"]), jnp.asarray(fr["motion"]),
+                         jnp.asarray(fr["jitter"]), packed, mesh,
+                         warp_taps=taps)
+        outs.append(dict(out=np.asarray(out), packed=np.asarray(packed)))
+    return outs
+
+
+def ref_sharded(spec, world, cam, gi_spec, gi_cases, state, frames, slab,
+                n_dev=4):
+    """``parallel/sharding.py`` on an ``n_dev`` mesh of the child's CPU
+    devices: the sharded frame with and without GI, the GI windows
+    ``gi_cases``
+    ((frame, offset) from the world's GI), ``pack_state`` of ``state``,
+    ``temporal_upscale_slab`` under each warp_taps on ``slab``'s rows of
+    ``frames[0]``, and two closed-loop frames of
+    ``temporal_upscale_sharded`` under "bilinear_shift" and "bilinear"."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from rvgrt_tpu.parallel import sharding
+    from rvgrt_tpu.upscale import temporal
+
+    mesh = Mesh(jax.devices()[:n_dev], ("rays",))
+    out = _mesh_jobs(mesh, spec, world, cam, gi_spec, gi_cases,
+                     sharding.render_frame_sharded, sharding.update_gi_sharded,
+                     True, include_gi=(True, False))
+    st = temporal.TemporalState(history=jnp.asarray(state["history"]),
+                                conf=jnp.asarray(state["conf"]))
+    packed = temporal.pack_state(st)
+    out["packed"] = np.asarray(packed)
+    lo0, n_lo = slab
+    fr = frames[0]
+    color, motion = jnp.asarray(fr["color"]), jnp.asarray(fr["motion"])
+    cpad = jnp.pad(color, ((1, 2), (0, 0), (0, 0)), mode="edge")
+    mpad = jnp.pad(motion, ((1, 1), (0, 0), (0, 0)), mode="edge")
+    out["slab"] = {}
+    for taps in ("bilinear_shift", "bilinear", "pallas"):
+        o, p = temporal.temporal_upscale_slab(
+            cpad[lo0:lo0 + n_lo + 3], mpad[lo0:lo0 + n_lo + 2],
+            jnp.asarray(fr["jitter"]), packed, lo0, n_lo, warp_taps=taps)
+        out["slab"][taps] = dict(out=np.asarray(o), packed=np.asarray(p))
+    out["upscale"] = {taps: _upscale_loop(sharding.temporal_upscale_sharded,
+                                          state, frames, mesh, taps)
+                      for taps in ("bilinear_shift", "bilinear")}
+    return out
+
+
+def ref_multislice(spec, world, cam, gi_spec, gi_cases, state, frames,
+                   n_slices=2, chips=2):
+    """``parallel/multislice.py`` on an ``n_slices`` x ``chips`` mesh of the
+    child's CPU devices: the frame (include_gi), the GI windows and two
+    closed-loop frames of ``temporal_upscale_multislice``."""
+    import jax
+
+    from rvgrt_tpu.parallel import multislice
+
+    mesh = multislice.make_mesh2d(n_slices, chips,
+                                  devices=jax.devices()[:n_slices * chips])
+    out = _mesh_jobs(mesh, spec, world, cam, gi_spec, gi_cases,
+                     multislice.render_frame_multislice,
+                     multislice.update_gi_multislice, False)
+    out["upscale"] = _upscale_loop(multislice.temporal_upscale_multislice,
+                                   state, frames, mesh, "bilinear_shift")
+    return out
+
+
+def ref_volume_ring(spec, world, rays, n_dev=4):
+    """``parallel/volume.py``'s ring on an ``n_dev`` z-mesh of the child's
+    CPU devices: ``trace_volume_sharded`` of flat rays."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from rvgrt_tpu.parallel import volume
+
+    ecfg = make_ecfg(_cfg(), spec)
+    mesh = Mesh(jax.devices()[:n_dev], ("z",))
+    w = {k: jnp.asarray(v) for k, v in world.items()}
+    tables = volume.build_shard_tables(w["bits"], w["sdf"], ecfg.world, mesh)
+    res = volume.trace_volume_sharded(tables, ecfg.world, ecfg.render, mesh,
+                                      *[jnp.asarray(a) for a in rays],
+                                      sky_y=w["sky_y"])
+    return dict(tables=np.asarray(tables),
+                res={f: np.asarray(getattr(res, f)) for f in (
+                    "hit", "px", "py", "pz", "nx", "ny", "nz", "uv_u",
+                    "uv_v", "its", "t")})
 
 
 def ref_render(spec, world, cam, checker_parity=None, quarter_phase=None):

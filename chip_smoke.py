@@ -25,6 +25,17 @@ is printed.
    with no host read inside it; the history warp is K2;
 4. config-4 (main path): the same loop at 1920x1080 native on the same
    world, temporal reconstruction at scale 1, 2 warm-up and 6 timed frames;
+4b. the entry point (main path; ``phase_bench``): ``python3 -m
+   rvgrt_tpu_torch.bench``, the port of ``bench.py``, as a user runs it with
+   every ``BENCH_*`` knob at its default, in a process of its own: its own
+   1024^3 world, 2 + 32 headline frames along the interactive path and 16
+   config-4 frames, its one JSON line held to bench.py's keys, the tier mix
+   {checker 10, quarter 22}, the 406 768 rays a frame of its accounting, no
+   straggler overflow, a hit share in (0, 1] and fps > 0; then its
+   ``run_point`` in this process on this world at ``BENCH_CHECKER=4
+   BENCH_GI_CADENCE=1 BENCH_CONFIG4_RATE=0`` (2 + 8 headline frames, all at
+   quarter rate with a GI window each, K1 and K2 once a frame; 2 + 4
+   config-4 frames at full rate, native, no K2);
 5. full rate (main path): the viewer's path, ``Engine.step`` +
    ``temporal_upscale``, 2 warm-up and 4 timed frames;
 5b. post modes (main paths): ``bench.py``'s other post stages on the same
@@ -169,7 +180,8 @@ two-phase trace as a trace, so on every path K1 launches == traces.
 Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
 line sums each kernel's launches over the build, the three frame paths, the
-GI init, the post modes, the CLIs, the two trainers' pair renders and world
+entry point's in-process points (the command's own process is not counted),
+the GI init, the post modes, the CLIs, the two trainers' pair renders and world
 builds, the render switches' loops, hinted frame and viewer, the probe's
 gathers and the big worlds' builds, init and frames.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
@@ -202,6 +214,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
+# bench.py's operating point, built by the port's entry point; GI_BUDGET is
+# its gi_straggler_budget
+from rvgrt_tpu_torch.bench import (  # noqa: E402
+    GI_BUDGET, headline_config, native_config)
+
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 # int32: 132 SMs x 64 INT32 lanes x 1.98 GHz (half the FP32 lanes behind
@@ -213,43 +230,10 @@ REF_POSE = dict(position=(30.0, 44.0, 60.0), yaw=math.pi + 0.25,
                 pitch=-math.pi - 0.18)
 WIDTH, HEIGHT = 1280, 800  # headline render resolution; displayed at 3x
 C4_WIDTH, C4_HEIGHT = 1920, 1080  # config-4, native
-GI_BUDGET = 12  # bench.py's gi_straggler_budget
 
 
 def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
-
-
-def headline_config(world, width: int, height: int, scale: int = 3):
-    """bench.py's operating point, built the way bench.py builds it
-    (``dataclasses.replace`` on the defaults), at ``scale`` x display, on
-    ``world``: a WorldConfig, or the log2 edge of a cube (``BENCH_CUBE``).
-    ``WorldConfig()`` is its ``BENCH_REF_WORLD=1`` point."""
-    from rvgrt_tpu_torch.config import (EngineConfig, LightingConfig,
-                                        RenderConfig, WorldConfig)
-
-    rcfg = dataclasses.replace(
-        RenderConfig(), width=width, height=height,
-        display_width=scale * width, display_height=scale * height,
-        prepass_divisor=8, prepass_cascade=4, shadow_site_divisor=4,
-        steps_per_check=1, dda_substeps=6, sdf_probe_interval=16,
-        dist_bias=4.0, fused_superstep=True, gi_res_divisor=16)
-    if isinstance(world, int):
-        world = WorldConfig().with_cube(world)
-    return EngineConfig(
-        world=world, render=rcfg,
-        lighting=dataclasses.replace(LightingConfig(), soft_shadows=True,
-                                     soft_shadow_stride=2),
-        gi_straggler_budget=GI_BUDGET, gi_init_mode="heightfield",
-        gi_init_stride=(2, 2))
-
-
-def native_config(ecfg, width: int, height: int):
-    """bench.py's config-4 point: the same settings at ``width x height``
-    native (scale-1 reconstruction)."""
-    return dataclasses.replace(ecfg, render=dataclasses.replace(
-        ecfg.render, width=width, height=height, display_width=width,
-        display_height=height))
 
 
 #: the non-cube world of the reference phase: x = z = 2 y, as the
@@ -316,17 +300,11 @@ def headline_pose(bits, w) -> dict:
     centre while size_z == size_x), below the world's top, looking down 0.5
     along +x, as a Character pose."""
     import numpy as np
-    import torch
 
-    from rvgrt_tpu_torch.core import u32
+    from rvgrt_tpu_torch.bench import terrain_top
 
     cx = cz = w.size_x // 2
-    vol = bits.reshape(w.size_z, w.size_y, w.size_x // 32)
-    solid = (u32.lsr(vol[cz, :, cx // 32], cx % 32) & 1).bool()
-    ys = torch.arange(w.size_y, device=solid.device)
-    top = float(torch.where(solid, ys, -1).max()) if bool(solid.any()) \
-        else 30.0
-    cam_y = min(top + 12.0, w.size_y - 2.0)
+    cam_y = min(terrain_top(bits, w) + 12.0, w.size_y - 2.0)
     fwd = np.array([0.87, -0.5, 0.0], np.float32)
     fwd /= np.linalg.norm(fwd)
     # Character.direction = (sin(yaw) cos(pitch), -sin(pitch),
@@ -379,7 +357,9 @@ def run_loop(world, ecfg, pose: dict, frames: int, dev, scale: int,
         frame_loop.path_yaws(frames, frame_loop.camera_path(upscaler)),
         time_s=time_s, device=dev)
     rates = frame_loop.rate_schedule([c for c, _ in cams], ecfg,
-                                     adaptive=frame_loop.adaptive(upscaler))
+                                     rates="adaptive"
+                                     if frame_loop.adaptive(upscaler)
+                                     else "full")
     loop = frame_loop.FrameLoop(world, ecfg, scale=scale, upscaler=upscaler,
                                 net=net, comp_cadence=comp_cadence)
     results, ms = [], []
@@ -1228,6 +1208,107 @@ def check_k3(bits, cfg, dev) -> dict:
                 f"such taps",
                 shape=f"{main[0]['shape']}, cap {main[0]['cap']}, per pass "
                       f"(build_sdf, axes 1 and 0)", passes=passes)
+
+
+#: the in-process bench point's timed headline frames (config-4: half, at
+#: least 4)
+BENCH_FRAMES = 8
+#: bench.py's JSON keys: the line, ``extra`` and a point's stats
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_EXTRA_KEYS = {"headline", "device", "readback_s", "world_build_s",
+                    "world_build_phases", "note", "config4_1080p_native_gi"}
+BENCH_POINT_KEYS = {"fps", "mrays_per_s", "mrays_primary_only", "hit_frac",
+                    "frames", "straggler_overflow", "rays_per_frame_mean",
+                    "tier_mix", "camera_path"}
+#: the default command's tiers and mean rays a frame: 10 checkerboard and
+#: 22 quarter frames at 1280x800, a 32 768-cell GI window on 16 of the 32
+BENCH_MIX = {"checker": 10, "quarter": 22}
+BENCH_RAYS = {"primary": 336000.0, "prepass_primary": 16000.0,
+              "prepass_shadow": 0.0, "cascade": 1000.0,
+              "shadow_sites": 21000.0, "gi_update": 32768.0}
+
+
+def bench_command(argv=(), knobs=None, timeout: float = 600.0) -> dict:
+    """``python3 -m rvgrt_tpu_torch.bench`` as a user runs it, with every
+    ``BENCH_*`` knob at its default (or ``knobs``): its one stdout line,
+    parsed, and its wall time."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(knobs or {})
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "rvgrt_tpu_torch.bench", *argv],
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"rvgrt_tpu_torch.bench failed ({res.returncode})"
+                           f":\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 1, res.stdout
+    return dict(out=json.loads(lines[0]), wall_s=wall,
+                stderr_tail=res.stderr.strip().splitlines()[-12:])
+
+
+def phase_bench(world, cube: int, dev, counts: dict,
+                frames: int = BENCH_FRAMES) -> dict:
+    """The port's entry point (``rvgrt_tpu_torch/bench.py``).  (a) The
+    default command in a process of its own (its own 1024^3 world, 32
+    headline and 16 config-4 frames): bench.py's keys, the tier mix {checker
+    10, quarter 22}, the rays a frame, no overflow, a hit share in (0, 1]
+    and fps > 0.  (b) ``run_point`` in this process on ``world`` at
+    ``BENCH_CHECKER=4 BENCH_GI_CADENCE=1 BENCH_CONFIG4_RATE=0``: the
+    headline's every frame at quarter rate with a GI window, K1 and K2 (one
+    a frame, warm-ups included); config-4 at full rate, native, no K2."""
+    import torch
+
+    from rvgrt_tpu_torch import bench
+    from rvgrt_tpu_torch.driver.frame_loop import WARMUP
+    from rvgrt_tpu_torch.trace import wavefront
+
+    cmd = bench_command()
+    out = cmd["out"]
+    head = out["extra"]["headline"]
+    log(f"bench command ({cmd['wall_s']:.1f} s): {json.dumps(out)}")
+    assert set(out) == BENCH_KEYS, out.keys()
+    assert set(out["extra"]) == BENCH_EXTRA_KEYS, out["extra"].keys()
+    for point in (head, out["extra"]["config4_1080p_native_gi"]):
+        assert set(point) == BENCH_POINT_KEYS, point.keys()
+    assert head["tier_mix"] == BENCH_MIX, head
+    assert head["rays_per_frame_mean"] == BENCH_RAYS, head
+    assert head["straggler_overflow"] == 0, head
+    assert 0.0 < head["hit_frac"] <= 1.0 and head["fps"] > 0.0, head
+
+    ecfg, opts = bench.bench_config({
+        "BENCH_CUBE": str(cube), "BENCH_W": str(WIDTH),
+        "BENCH_H": str(HEIGHT), "BENCH_FRAMES": str(frames),
+        "BENCH_CHECKER": "4", "BENCH_GI_CADENCE": "1",
+        "BENCH_CONFIG4_RATE": "0"})
+    points = {}
+    for name, ec, n in (
+            ("headline", ecfg, frames),
+            ("config4", native_config(ecfg, C4_WIDTH, C4_HEIGHT),
+             max(frames // 2, 4))):
+        reset_counts()
+        _, stats, loop = bench.run_point(world, ec, f"bench-{name}", n, opts)
+        torch.cuda.synchronize()
+        c = counts[f"bench_{name}"] = read_counts()
+        traces = wavefront.read_stats()["traces"]
+        points[name] = dict(stats, launches=c, traces=traces,
+                            gi_windows=loop.gi_windows)
+        log(f"bench in process, {name}: {points[name]}")
+        assert c["K1"] > 0 and c["K1"] == traces, (c, traces)
+    head_q, c4 = points["headline"], points["config4"]
+    n_head = frames + WARMUP
+    assert head_q["tier_mix"] == {"quarter": frames}, head_q
+    assert head_q["gi_windows"] == n_head, head_q
+    assert head_q["launches"]["K2"] == n_head, head_q
+    assert c4["tier_mix"] == {"full": max(frames // 2, 4)}, c4
+    assert c4["launches"]["K2"] == 0, c4
+    return dict(command=dict(json=out, wall_s=cmd["wall_s"],
+                             stderr_tail=cmd["stderr_tail"]),
+                in_process=points)
 
 
 def phase_gi_init(eng, dev, counts: dict) -> dict:
@@ -3242,6 +3323,11 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
                    c4["loop"].gi_windows)
     lap("config4")
 
+    # ---- main path: the entry point, python -m rvgrt_tpu_torch.bench, and
+    # its run_point at a fixed tier on this world ----
+    report["bench"] = phase_bench(eng.world, cube, dev, counts)
+    lap("bench")
+
     # ---- main path: the viewer's full-rate path ----
     eng.character = make_character(ecfg, pose)
     reset_counts()
@@ -3463,6 +3549,7 @@ def main(argv=None) -> int:
     for n in worlds:
         print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)
+    print(json.dumps({"bench": report["bench"]}), flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

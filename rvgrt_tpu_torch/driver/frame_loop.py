@@ -1,19 +1,23 @@
 """``bench.py``'s frame loop: the frames its benchmark times.
 
 The JAX package keeps this loop inside ``bench.py``'s ``main()``; the port
-keeps it here so that ``chip_smoke.py`` and a later benchmark drive the
-same frames.  Per frame ``i``:
+keeps it here so that ``chip_smoke.py`` and the port's entry point
+``rvgrt_tpu_torch/bench.py`` drive the same frames.  Per frame ``i``:
 
-1. the rate: the first frame at checkerboard rate, then the motion-adaptive
-   scheduler's pick from the previous and the current pose
-   (``rate_schedule``; ``bench.py:491-501``), checkerboard under fast
-   motion, quarter rate when slow or still;
+1. the rate (``rate_schedule``; ``bench.py:337-348``, ``:491-501``): by
+   default the first frame at checkerboard rate, then the motion-adaptive
+   scheduler's pick from the previous and the current pose, checkerboard
+   under fast motion, quarter rate when slow or still; or one fixed tier,
+   ``"checker"``, ``"quarter"`` or ``"full"`` (``BENCH_CHECKER=1|2``, ``4``,
+   ``0``);
 2. the parity (``i & 1``) or quarter phase (``QUARTER_PHASE_ORDER[i &
    3]``), host ints (``frame_phase``; ``bench.py:530-531``);
-3. every ``GI_CADENCE``-th frame, one GI window (``update_gi``, with the
-   straggler respite at ``ecfg.gi_straggler_budget``); the window's offset
-   advances only right before a frame that runs one, so the sweep has no
-   gaps (``bench.py:536-539``, ``:560-598``);
+3. every ``gi_cadence``-th frame (``BENCH_GI_CADENCE``, default 2), one GI
+   window (``update_gi``, with the straggler respite at
+   ``ecfg.gi_straggler_budget``); the window's offset advances only right
+   before a frame that runs one, so the sweep has no gaps
+   (``bench.py:536-539``, ``:560-598``).  ``include_gi=False``
+   (``BENCH_GI=0``) runs no window and no composite;
 4. the base frame on the rate-cut grid with its G-buffer, the GI
    composite, the expand of colour, motion and depth to the full grid, the
    valid mask, and the post stage (``bench.py:355-435``).
@@ -23,7 +27,8 @@ The post stage is one of ``bench.py``'s ``BENCH_UPSCALE`` modes
 ``:421-435``):
 
 * ``"temporal"`` (the default): ``temporal_upscale(valid=...,
-  warp_taps="pallas")``, the history warp through K2;
+  warp_taps=...)``, the history warp through K2 under the default taps
+  ``"pallas"`` (``BENCH_WARP``);
 * ``"net"``: the learned upscaler (``upscale/model.py``, a checkpoint such
   as ``checkpoints/upscaler.pkl``), its history the previous 3x output
   warped by a plain gather, no valid mask;
@@ -47,17 +52,17 @@ path (``adaptive``, ``camera_path``); ``"net"`` and ``"none"`` take the
 reference's 8-phase jitter table, the accumulator's modes the 9-phase one
 (``jitter_sequence``, ``bench.py:475-476``).
 
-The poses come from the caller: ``path_yaws`` is ``bench.py``'s camera path
-(``:263-290``) and ``path_cameras`` turns it into per-frame cameras through
-a ``Character``, which supplies the view-projection matrices and the
-jitter, as ``Engine.step`` does.  Three things of ``bench.py`` are not
-copied, in every mode: its cameras carry identity matrices (every motion
-vector 0), it passes frame 0 to every GI window, and it renders every frame
-with the water clock at ``time_s=0``; here the matrices are the
-Character's, the GI frame number is the frame index, and the water clock
-advances 1/60 s a frame (``path_cameras``), which changes the shade of
-water pixels, not the work.  Its extra warm-up frames, which exist to
-compile graphs, have no counterpart.  Beside those, per mode:
+The poses come from the caller.  ``path_yaws`` is ``bench.py``'s camera
+path (``:263-290``); ``path_cameras`` turns it into per-frame cameras
+through a ``Character``, which supplies the view-projection matrices and
+the jitter, as ``Engine.step`` does, and advances the water clock 1/60 s a
+frame; the GI frame number is the frame index.  ``bench.py`` itself gives
+its cameras identity matrices (every motion vector 0), passes frame 0 to
+every GI window and keeps the water clock at ``time_s=0``: the port's entry
+point (``rvgrt_tpu_torch/bench.py``) reproduces that with raw cameras and
+``gi_frame=0``.  Its extra warm-up frames, which re-render a pose at a tier
+the first two frames did not cover, are ``frame(..., advance=False)``.
+Beside those, per mode:
 
 * ``"net"``: ``bench.py`` falls back to fresh weights (``init_params``)
   when ``checkpoints/upscaler.pkl`` is missing; the loop takes the net it
@@ -100,6 +105,8 @@ WARMUP = 2
 GI_CADENCE = 2
 #: bench.py's ``BENCH_UPSCALE`` modes (module docstring)
 UPSCALERS = ("temporal", "net", "residual", "none")
+#: ``rate_schedule``'s choices: the scheduler, or one fixed tier
+RATES = ("adaptive", RATE_CHECKER, RATE_QUARTER, RATE_FULL)
 
 
 def adaptive(upscaler: str) -> bool:
@@ -166,13 +173,15 @@ def path_cameras(character: Character, yaws, time_s: float = 0.0,
 
 
 def rate_schedule(poses, ecfg: EngineConfig,
-                  adaptive: bool = True) -> list[str]:
-    """The rate of each frame from consecutive poses: the first frame at
-    checkerboard rate (no history yet), then the scheduler's pick, which
-    looks one pose back, as a live flythrough would.  Without
-    ``adaptive``, every frame at full rate."""
-    if not adaptive:
-        return [RATE_FULL] * len(poses)
+                  rates: str = "adaptive") -> list[str]:
+    """The rate of each frame from consecutive poses.  ``rates``, one of
+    ``RATES``: ``"adaptive"`` puts the first frame at checkerboard rate (no
+    history yet), then the scheduler's pick, which looks one pose back, as
+    a live flythrough would; a tier puts every frame at that rate."""
+    if rates not in RATES:
+        raise ValueError(f"unknown rates {rates!r}; one of {RATES}")
+    if rates != "adaptive":
+        return [rates] * len(poses)
     r = ecfg.render
     sched = AdaptiveRateScheduler(r.width, r.height, r.fov_degrees)
     return [RATE_CHECKER] + [sched.step(a, b)
@@ -191,7 +200,8 @@ class FrameResult(NamedTuple):
     phase: int
     gi_ran: bool
     out: pipeline.FrameOutputs  # composited, expanded to (H, W)
-    hit: torch.Tensor           # primary hits on the rate-cut grid
+    hit: torch.Tensor | None    # primary hits on the rate-cut grid (None
+    #                             without GI: no G-buffer is returned)
     image: torch.Tensor         # (scale*H, scale*W, 3) reconstruction
 
 
@@ -203,24 +213,34 @@ class FrameLoop:
     reconstruction (config-4).  ``upscaler`` is the post stage's mode and
     ``net`` its learned module: an ``UpscalerNet`` for ``"net"``, a
     ``ResidualHead`` for ``"residual"``.  ``comp_cadence`` > 1 reuses the
-    GI composite's addend between composites.  ``overflow`` sums the
+    GI composite's addend between composites.  ``gi_cadence``: a GI window
+    every that many frames; ``include_gi=False``: none, and no composite.
+    ``gi_frame``: the frame number every GI window seeds its bounce rays
+    with (``bench.py`` passes 0), or None for the frame index.
+    ``warp_taps``: the accumulator's history warp.  ``overflow`` sums the
     respite's ``straggler_overflow`` over the GI windows, on the device."""
 
     def __init__(self, world: World, ecfg: EngineConfig, scale: int = 3,
                  upscaler: str = "temporal", net=None,
-                 comp_cadence: int = 1):
+                 comp_cadence: int = 1, gi_cadence: int = GI_CADENCE,
+                 include_gi: bool = True, gi_frame: int | None = None,
+                 warp_taps: str = "pallas"):
         adaptive(upscaler)  # validates the name
         if upscaler != "temporal" and scale != 3:
             upscaler = "none"  # bench.py upscales only at the headline
         if upscaler in ("net", "residual") and net is None:
             raise ValueError(f"upscaler {upscaler!r} needs its net")
-        if comp_cadence < 1:
-            raise ValueError(f"comp_cadence {comp_cadence} < 1")
+        if comp_cadence < 1 or gi_cadence < 1:
+            raise ValueError(f"cadences {comp_cadence}, {gi_cadence} < 1")
         self.world = world
         self.ecfg = ecfg
         self.upscaler = upscaler
         self.net = net
         self.comp_cadence = comp_cadence
+        self.gi_cadence = gi_cadence
+        self.include_gi = include_gi
+        self.gi_frame = gi_frame
+        self.warp_taps = warp_taps
         dev = world.bits.device
         r = ecfg.render
         if upscaler in ("temporal", "residual"):
@@ -277,34 +297,41 @@ class FrameLoop:
             return image
         image, self.state = temporal.temporal_upscale(
             out.color, out.motion, out.depth, cam.jitter, self.state,
-            valid=valid, warp_taps="pallas")
+            valid=valid, warp_taps=self.warp_taps)
         if self.upscaler == "residual":
             image = residual.apply(self.net, out.color, out.motion,
                                    out.depth, cam.jitter, image,
                                    self.state.conf)
         return image
 
-    def frame(self, i: int, cam: pipeline.CameraArrays,
-              rate: str) -> FrameResult:
+    def frame(self, i: int, cam: pipeline.CameraArrays, rate: str,
+              advance: bool = True) -> FrameResult:
+        """Frame ``i`` at ``rate``.  ``advance=False``: a GI window of this
+        frame keeps the last window's offset (``bench.py``'s extra warm-up
+        frames, ``:573-591``)."""
         w, ec = self.world, self.ecfg
         r = ec.render
         phase = frame_phase(i, rate)
-        gi_ran = i % GI_CADENCE == 0
+        gi_ran = self.include_gi and i % self.gi_cadence == 0
         if gi_ran:
-            if self.gi_windows:
+            if self.gi_windows and advance:
                 self.offset = gi_update.advance_offset(self.offset, ec)
             self.gi, st = gi_update.update_gi(
-                self.gi, w.bits, w.sdf, w.atlas, ec, i, self.offset,
+                self.gi, w.bits, w.sdf, w.atlas, ec,
+                i if self.gi_frame is None else self.gi_frame, self.offset,
                 sky_y=w.sky_y, table=w.trace_table, return_stats=True)
             self.overflow = self.overflow + st["straggler_overflow"]
             self.gi_windows += 1
-        out, gb = pipeline.render_frame(
+        res = pipeline.render_frame(
             w.bits, w.sdf, self.gi, w.atlas, cam, ec, include_gi=False,
-            sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True,
+            sky_y=w.sky_y, table=w.trace_table,
+            return_gbuffer=self.include_gi,
             checker_parity=phase if rate == RATE_CHECKER else None,
             quarter_phase=phase if rate == RATE_QUARTER else None)
-        out = out._replace(color=self._composite(i, out.color, gb, rate,
-                                                 phase))
+        out, gb = res if self.include_gi else (res, None)
+        if self.include_gi:
+            out = out._replace(color=self._composite(i, out.color, gb, rate,
+                                                     phase))
         dev = out.color.device
         valid = None
         if rate == RATE_CHECKER:
@@ -321,4 +348,5 @@ class FrameLoop:
                                motion=expand(out.motion),
                                depth=expand(out.depth))
         return FrameResult(rate=rate, phase=phase, gi_ran=gi_ran, out=out,
-                           hit=gb.hit, image=self._post(out, cam, valid))
+                           hit=None if gb is None else gb.hit,
+                           image=self._post(out, cam, valid))

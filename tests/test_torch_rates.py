@@ -172,7 +172,8 @@ def _port_loop(world, cams, upscaler="temporal", comp_cadence=1):
     ecfg = ref.make_ecfg(tcfg, ref.with_render(SPEC, fused_superstep=True))
     w = engine.world_from_numpy(world, device="cpu")
     rates = frame_loop.rate_schedule(
-        [c for c, _ in cams], ecfg, adaptive=frame_loop.adaptive(upscaler))
+        [c for c, _ in cams], ecfg,
+        rates="adaptive" if frame_loop.adaptive(upscaler) else "full")
     net = None
     if upscaler == "net":
         net = model.load_checkpoint(CKPT["net"], device="cpu")

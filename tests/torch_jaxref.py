@@ -647,8 +647,8 @@ def _bench_ops(spec):
     reconstruction and the next state (the exact 4-tap warp; with
     ``mode`` "net", "residual" or "none" ``bench.py``'s other
     ``BENCH_UPSCALE`` posts, the flax module ``net`` static and its
-    ``params`` traced), ``gi(gi, world, frame, offset)`` -> (words,
-    overflow)."""
+    ``params`` traced; ``taps`` the accumulator's history warp),
+    ``gi(gi, world, frame, offset)`` -> (words, overflow)."""
     import functools
     import json
 
@@ -677,9 +677,10 @@ def _bench_ops(spec):
         return pipeline.gi_composite(color, gb, gi, sdf, ecfg,
                                      return_addend=True)
 
-    @functools.partial(jax.jit, static_argnames=("rate", "mode", "net"))
+    @functools.partial(jax.jit, static_argnames=("rate", "mode", "net",
+                                                 "taps"))
     def post(out, cam, state, par, rate, mode="temporal", net=None,
-             params=None):
+             params=None, taps="bilinear"):
         valid = None
         if rate == "checker":
             def ex(a):
@@ -700,7 +701,7 @@ def _bench_ops(spec):
             return out, hi, hi
         hi, state = temporal.temporal_upscale(
             out.color, out.motion, out.depth, cam.jitter, state, valid=valid,
-            warp_taps="bilinear")
+            warp_taps=taps)
         if mode == "residual":
             hi = net.apply(params, out.color, out.motion, out.depth,
                            cam.jitter, hi, state.conf)
@@ -853,23 +854,27 @@ def _load_net(upscaler, path):
 
 
 def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale,
-                   modes=(("temporal", 1, None),)):
+                   modes=(("temporal", 1, None),), rates=None,
+                   include_gi=True, gi_frame=None, warp_taps="bilinear"):
     """``bench.py``'s frame loop composed of the JAX package's functions,
     jitted and called in its order, over the given cameras: the
     scheduler's rates from the poses (the first frame checkerboard; every
-    frame at full rate when the first mode is not "temporal"), the parity
-    or quarter phase of the frame index, a GI window every
-    ``gi_cadence``-th frame (frame number = frame index, offset advanced
-    before each window but the first), the base frame at the frame's rate,
-    then for each of ``modes`` - (``BENCH_UPSCALE`` mode,
+    frame at full rate when the first mode is not "temporal"; ``rates``
+    "checker", "quarter" or "full": every frame at that tier, as
+    ``BENCH_CHECKER=2|4|0``), the parity or quarter phase of the frame
+    index, a GI window every ``gi_cadence``-th frame (frame number =
+    ``gi_frame``, or the frame index when None; offset advanced before each
+    window but the first; with ``include_gi`` False no window and no
+    composite, as ``BENCH_GI=0``), the base frame at the frame's rate, then
+    for each of ``modes`` - (``BENCH_UPSCALE`` mode,
     ``BENCH_COMP_CADENCE``, checkpoint path) - ``bench.py``'s ``_post``:
     the composite or, on a reusing frame, the carried full-resolution
     addend re-selected at the frame's rate and phase, the expand, the
-    valid mask and the mode's upscaler (the accumulator with the exact
-    4-tap warp).  The modes share the rates, GI windows and base frames.
-    Returns the rates, each mode's frames (expanded base outputs, hit mask
-    and reconstruction; the first mode's also as ``frames``), the GI words
-    and the summed overflow."""
+    valid mask and the mode's upscaler (the accumulator with the
+    ``warp_taps`` warp, by default the exact 4-tap one).  The modes share
+    the rates, GI windows and base frames.  Returns the rates, each mode's
+    frames (expanded base outputs, hit mask and reconstruction; the first
+    mode's also as ``frames``), the GI words and the summed overflow."""
     import jax.numpy as jnp
 
     from rvgrt_tpu.gi import update
@@ -881,13 +886,15 @@ def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale,
     ecfg = ops["ecfg"]
     r = ecfg.render
     w = {k: jnp.asarray(v) for k, v in world.items()}
-    if modes[0][0] == "temporal":
+    if rates is None:
+        rates = "adaptive" if modes[0][0] == "temporal" else "full"
+    if rates == "adaptive":
         sched = AdaptiveRateScheduler(r.width, r.height, r.fov_degrees)
         rates = ["checker"] + [
             sched.pick(sched.motion_pixels(p0, f0, p1, f1))
             for (p0, f0), (p1, f1) in zip(poses, poses[1:])]
     else:
-        rates = ["full"] * len(cams)
+        rates = [rates] * len(cams)
     runs = []
     for mode, cadence, path in modes:
         net, params = _load_net(mode, path)
@@ -905,17 +912,21 @@ def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale,
         rate = rates[i]
         par = (pipeline.QUARTER_PHASE_ORDER[i & 3] if rate == "quarter"
                else i & 1)
-        if i % gi_cadence == 0:
+        if include_gi and i % gi_cadence == 0:
             if windows:
                 off = update.advance_offset(off, ecfg)
-            gi, ovf = ops["gi"](gi, w, jnp.uint32(i), jnp.int32(off))
+            gi, ovf = ops["gi"](gi, w, jnp.uint32(i if gi_frame is None
+                                                  else gi_frame),
+                                jnp.int32(off))
             overflow += int(ovf)
             windows += 1
         ca = _camera_arrays(cam)
         base, gb = ops["base"](w, gi, ca, jnp.int32(par), rate=rate)
         comp = add = None
         for run in runs:
-            if run["cadence"] > 1 and i % run["cadence"] != 0:
+            if not include_gi:
+                col = base.color
+            elif run["cadence"] > 1 and i % run["cadence"] != 0:
                 a = run["addend"]
                 if rate == "checker":
                     a = pipeline.checker_select(a, par)
@@ -936,7 +947,7 @@ def ref_frame_loop(spec, world, cams, poses, gi_cadence, scale,
             out, hi, run["state"] = ops["post"](
                 base._replace(color=col), ca, run["state"], jnp.int32(par),
                 rate=rate, mode=run["mode"], net=run["net"],
-                params=run["params"])
+                params=run["params"], taps=warp_taps)
             run["frames"].append(dict(out=_np(out._asdict()),
                                       hit=np.asarray(gb.hit),
                                       image=np.asarray(hi)))

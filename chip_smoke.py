@@ -116,6 +116,22 @@ is printed.
    unbounded one, and ``render_frame_volume`` on a 256^3 world at 320x200
    (the frame gate above); the rounds, handoffs and packet bytes of each
    round and rank;
+5f. probes (main paths; ``phase_probes``): the repository's quality,
+   latency and cost probes, ported in ``rvgrt_tpu_torch/tools/``, run in
+   this process.  ``probe_checker_motion`` at its defaults (cube 7, 128x80
+   -> 384x240, 24 frames, SSAA 4; the accumulators' default taps) with
+   ``--mode all`` on the ``mixed`` and the ``pan`` script, and ``--script
+   pan --comp-cadence 1 --frames 8``; then at the headline on this world
+   (``--mode adaptive --script mixed --warp pallas``, cut to 12 frames,
+   ``--warm 4``, ``--ssaa 2``, the cut printed): every PSNR finite, the
+   adaptive variant checker on every pan frame and, at cadence 1, equal to
+   the checker variant image for image, K2 twice a frame at the headline.
+   ``probe_r31_latency`` over the live viewer at ``--config stage2
+   --trials 10`` and ``--config stage4 --trials 6`` (each its own world).
+   ``perf_probe`` at its defaults (512^3, 1280x720) and with ``--gi
+   --sweep`` at 1024^3 and 1280x800 (its own world, traced GI init):
+   every stage's kernel time from ``torch.profiler``, the floors fitted to
+   K1's kernel time.  K1 launches == traces in every run; each run's JSON on a line;
 6. traced GI init (main path): ``config_stage4``'s GI init on the same
    world (stage 4's): one sun-shadow ray per GI cell through K1, at stride
    (1, 1) all 2^24 cells in one trace and at (2, 2) 2^22, each timed; K1 on
@@ -181,9 +197,10 @@ Every launch counter is set to 0 just before each main-path phase and read
 just after it, so the launches of the checks are not counted; the kernel
 line sums each kernel's launches over the build, the three frame paths, the
 entry point's in-process points (the command's own process is not counted),
-the GI init, the post modes, the CLIs, the two trainers' pair renders and world
-builds, the render switches' loops, hinted frame and viewer, the probe's
-gathers and the big worlds' builds, init and frames.
+the probes of phase 5f, the GI init, the post modes, the CLIs, the two
+trainers' pair renders and world builds, the render switches' loops, hinted
+frame and viewer, the probe's gathers and the big worlds' builds, init and
+frames.
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
@@ -3192,6 +3209,130 @@ def phase_volume_ring(w, ecfg, cam, dev, counts: dict,
         shutil.rmtree(folder, ignore_errors=True)
 
 
+#: the quality probe's runs (``tools/probe_checker_motion.py``): its
+#: defaults (cube 7, 128x80, 24 frames, SSAA 4) under both scripts, the
+#: pan script with the composite every frame (where the adaptive variant
+#: must equal the checker one), and bench.py's operating point
+QUALITY_RUNS = {
+    "mixed": ["--mode", "all", "--script", "mixed"],
+    "pan": ["--mode", "all", "--script", "pan"],
+    "pan_cadence_1": ["--mode", "all", "--script", "pan", "--comp-cadence",
+                      "1", "--frames", "8"],
+}
+#: at the headline: 1024^3, 1280x800 -> 3840x2400, headline_config's
+#: render settings, the history warp through K2; the cuts of the script's
+#: defaults (24 frames, --warm 6, --ssaa 4) are in QUALITY_HEADLINE_CUT
+QUALITY_HEADLINE_ARGS = ["--mode", "adaptive", "--script", "mixed",
+                         "--warp", "pallas", "--frames", "12", "--warm", "4",
+                         "--ssaa", "2"]
+QUALITY_HEADLINE_CUT = ("--frames 12 (24), --warm 4 (6), --ssaa 2 (4): "
+                        "each SSAA render is a 3840x2400 frame with GI")
+#: the latency probe (``tools/probe_r31_latency.py``): the TPU history's
+#: row and the CLI's 1920x1080 stage
+LATENCY_RUNS = {"stage2": ["--config", "stage2", "--trials", "10"],
+                "stage4": ["--config", "stage4", "--trials", "6"]}
+#: the cost probe (``tools/perf_probe.py``): its defaults, and the sweep
+#: at the headline's world and frame (RenderConfig's defaults otherwise)
+COST_RUNS = {"defaults": [],
+             "sweep_1024": ["--cube", "10", "--w", "1280", "--h", "800",
+                            "--gi", "--sweep"]}
+
+
+def _finite_psnrs(rep: dict) -> bool:
+    vals = [rep["full_vs_truth_db"]]
+    for v in rep["variants"].values():
+        vals += [v["vs_full_db"], v["vs_truth_db"]]
+    for f in rep["per_frame"]:
+        vals += [f["full_vs_truth"], *f["vs_full"].values(),
+                 *f["vs_truth"].values()]
+    return all(map(math.isfinite, vals))
+
+
+def phase_probes(eng, ecfg, dev, counts: dict) -> dict:
+    """The repository's quality, latency and cost probes on the card, in
+    this process, each a main path (``counts["probe_<run>"]``): K1
+    launches == traces in every run.  Quality (``QUALITY_RUNS``, then the
+    headline on this engine's world): every PSNR finite; on the pan script
+    the adaptive variant picks checker on every frame; at composite
+    cadence 1 its images equal the checker variant's, frame for frame; K2
+    twice a frame at the headline (the full-rate and the adaptive
+    accumulator), never under the default taps.  Latency
+    (``LATENCY_RUNS``) and cost (``COST_RUNS``): each tool's report; the
+    cost probe's stages each with kernel time, its floors fitted to K1's."""
+    import torch
+
+    from rvgrt_tpu_torch.tools import perf_probe
+    from rvgrt_tpu_torch.tools import probe_checker_motion as pcm
+    from rvgrt_tpu_torch.tools import probe_r31_latency as lat
+    from rvgrt_tpu_torch.trace import wavefront
+
+    rep = {"quality": {}, "latency": {}, "cost": {}}
+
+    def counted(key: str, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        c = counts[f"probe_{key}"] = read_counts()
+        st = wavefront.read_stats()
+        assert c["K1"] == st["traces"] > 0, (key, c, st)
+        r.update(launches=c, traces=st["traces"],
+                 wall_s=time.perf_counter() - t0)
+        return r
+
+    for name, argv in QUALITY_RUNS.items():
+        keep = name == "pan_cadence_1"
+        r = counted(f"quality_{name}",
+                    lambda: pcm.main(argv, keep_images=keep))
+        records = r.pop("records")
+        assert _finite_psnrs(r), (name, r)
+        assert r["launches"]["K2"] == 0, (name, r["launches"])
+        if name.startswith("pan"):
+            tiers = [f["tiers"]["adaptive"] for f in r["per_frame"]]
+            assert tiers == ["checker"] * len(tiers), (name, tiers)
+        if keep:
+            for rec in records:
+                assert torch.equal(rec.images["adaptive"],
+                                   rec.images["checker"]), rec.frame
+            r["adaptive_equals_checker"] = True
+        del records
+        rep["quality"][name] = r
+        log(f"probes quality {name}: {json.dumps(r)}")
+    r = counted("quality_headline", lambda: pcm.main(
+        QUALITY_HEADLINE_ARGS, ecfg=ecfg, world=eng.world))
+    r.pop("records")
+    assert _finite_psnrs(r), r
+    assert r["launches"]["K2"] == 2 * r["frames"], r["launches"]
+    r.update(args=" ".join(QUALITY_HEADLINE_ARGS), cut=QUALITY_HEADLINE_CUT)
+    rep["quality"]["headline"] = r
+    log(f"probes quality headline ({QUALITY_HEADLINE_CUT}): {json.dumps(r)}")
+
+    for name, argv in LATENCY_RUNS.items():
+        r = counted(f"latency_{name}", lambda: lat.main(argv))
+        assert r["trials"] == len(r["trials_ms"]["guaranteed_ms"]), r
+        rep["latency"][name] = r
+        log(f"probes latency {name}: {json.dumps(r)}")
+
+    for name, argv in COST_RUNS.items():
+        r = counted(f"cost_{name}", lambda: perf_probe.main(argv))
+        # every stage timed by the card's own clock, the floors by K1's
+        # kernel time
+        # kernel time is part of the call's time: it cannot exceed the
+        # events around the call
+        assert all(math.isfinite(s["event_ms"])
+                   and 0 < s["device_ms"] <= s["event_ms"]
+                   for s in r["stages"].values()), r
+        for f in ("floor_parked", "floor_live"):
+            assert r[f] is not None and r[f]["timed_by"] == \
+                "K1 kernel time", (f, r[f])
+        assert all(r["stages"][f"{p}_{c}"]["k1_ms"] > 0
+                   for p in ("parked_cap", "live_cap")
+                   for c in perf_probe.FLOOR_CAPS), r["stages"]
+        rep["cost"][name] = r
+        log(f"probes cost {name}: {json.dumps(r)}")
+    return rep
+
+
 def k1_instantiations(carried: dict, slim: dict, zedges: dict,
                       launches: dict) -> list:
     """K1's four template instantiations (SLIM x ZEDGES): each one's
@@ -3354,6 +3495,10 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     # ring on the one card (gloo) ----
     report["parallel"] = phase_parallel(eng, ecfg, head["cams"], dev, counts)
     lap("parallel")
+
+    # ---- main paths: the quality, latency and cost probes ----
+    report["probes"] = phase_probes(eng, ecfg, dev, counts)
+    lap("probes")
 
     # ---- main paths: the render switches (slim carry, the fused cone
     # table, the temporal start hints), the PNG atlas, the viewer and the
@@ -3546,6 +3691,7 @@ def main(argv=None) -> int:
     print(json.dumps({"train": report["train"]}), flush=True)
     print(json.dumps({"switches": report["switches"]}), flush=True)
     print(json.dumps({"parallel": report["parallel"]}), flush=True)
+    print(json.dumps({"probes": report["probes"]}), flush=True)
     for n in worlds:
         print(json.dumps({f"world_{n}": report[f"world_{n}"]}), flush=True)
     print(json.dumps({"reference": report["reference"]}), flush=True)

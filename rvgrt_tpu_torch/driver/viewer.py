@@ -160,13 +160,18 @@ class ViewerServer:
                     self.end_headers()
                     last = 0  # the first frame published is number 1
                     try:
-                        while not viewer._stop.is_set():
+                        while True:
+                            # a frame newer than the last one sent goes out
+                            # before the stop is looked at, so a stream
+                            # ends after every frame that was published
                             data, seq = viewer._wait_frame_after(last)
                             if seq == last or not data:
                                 # no new frame (a long first frame, or a
                                 # timed-out wait): keep the stream open and
                                 # send neither an empty part (browsers drop
                                 # the stream) nor the last one again
+                                if viewer._stop.is_set():
+                                    break
                                 continue
                             last = seq
                             self.wfile.write(
@@ -277,6 +282,12 @@ class ViewerServer:
     def wait(self):
         """Block until the server stops (``stop()``, or a failed render)."""
         self._stop.wait()
+
+    @property
+    def running(self) -> bool:
+        """False once the server was stopped or its render loop failed
+        (then ``stop()`` raises the loop's error)."""
+        return not self._stop.is_set()
 
     def stop(self, timeout: float = 60.0):
         """Stop serving, then wait for the render loop's frame in flight;

@@ -288,10 +288,12 @@ def _cascade_start(trace_fn, rcfg, cam: CameraArrays, hy0: int, hrows: int,
 
 
 def _distance(res, cam: CameraArrays):
+    """Hit distance from the camera, correctly rounded on every device
+    (``vecmath.sqrt``), as the JAX package's."""
     ex = res.px - cam.pos[0]
     ey = res.py - cam.pos[1]
     ez = res.pz - cam.pos[2]
-    return torch.sqrt(ex * ex + ey * ey + ez * ez)
+    return vm.sqrt(ex * ex + ey * ey + ez * ez)
 
 
 def half_res_prepass(bits, sdf, cfg, rcfg, lcfg, cam: CameraArrays,
@@ -364,6 +366,17 @@ def _expand_even(a: torch.Tensor, s: int, out_shape) -> torch.Tensor:
 
     up = axis_up(axis_up(a, 0), 1)
     return up[:out_shape[0], :out_shape[1]]
+
+
+def min_dist_upsample(half_dist: torch.Tensor) -> torch.Tensor:
+    """Conservative 2x upsample: min over the 2x2 quad at (ix//2, iy//2),
+    neighbours clamped at edges (``minDist``, StateRender.cu:182-198)."""
+    pad = torch.cat([half_dist, half_dist[-1:]], dim=0)
+    pad = torch.cat([pad, pad[:, -1:]], dim=1)
+    m = torch.minimum(torch.minimum(pad[:-1, :-1], pad[:-1, 1:]),
+                      torch.minimum(pad[1:, :-1], pad[1:, 1:]))
+    return torch.repeat_interleave(torch.repeat_interleave(m, 2, dim=0), 2,
+                                   dim=1)
 
 
 def _min_dist_upsample_slab(half_halo: torch.Tensor, slab_h: int,

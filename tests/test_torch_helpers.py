@@ -259,6 +259,62 @@ def test_viewer_render_failure_ends_streams_and_raises():
                 srv.stop()
 
 
+def test_viewer_stream_sends_the_last_frame_after_a_failure():
+    """The interleaving in which a stream lost its last frame, forced: the
+    stream handler is held back after its headers until the render loop
+    has failed (its second step raises), then let go.  The stream still
+    sends the one frame that was published and then ends; ``stop()``
+    raises the step's error."""
+    from rvgrt_tpu_torch.config import EngineConfig, RenderConfig
+    from rvgrt_tpu_torch.driver.viewer import ViewerServer
+
+    class StubOut:
+        color = torch.full((24, 32, 3), 0.5)
+
+    class FailingEngine:
+        ecfg = EngineConfig(render=dataclasses.replace(
+            RenderConfig(), width=32, height=24))
+
+        def __init__(self):
+            self.steps = 0
+            self.go = threading.Event()
+
+        def step(self, inputs, dt):
+            self.steps += 1
+            if self.steps > 1:
+                self.go.wait(10)
+                raise ValueError("step failed")
+            return StubOut()
+
+    eng = FailingEngine()
+    srv = ViewerServer(eng, port=0, max_fps=120)
+    handler = srv.httpd.RequestHandlerClass
+    end_headers = handler.end_headers
+    held = []
+
+    def end_headers_then_hold(self):
+        end_headers(self)
+        if self.path == "/stream":
+            held.append(srv._stop.wait(10))
+
+    handler.end_headers = end_headers_then_hold
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(base + "/stream", timeout=10) as s:
+            eng.go.set()
+            body = s.read()
+        assert held == [True]
+        assert body.count(b"--f\r\n") == 1
+        assert body.rstrip().endswith(b"\xff\xd9")
+    finally:
+        eng.go.set()
+        with pytest.raises(RuntimeError, match="render loop failed") as e:
+            srv.stop()
+    assert isinstance(e.value.__cause__, ValueError)
+    assert eng.steps == 2
+
+
 def test_viewer_stream_waits_for_the_first_frame():
     """A stream opened before the first frame waits for it without
     spinning: a handful of waits, not one per turn of a busy loop, and the

@@ -1290,6 +1290,131 @@ def ref_render_pairs(spec, n_frames, low_w, low_h, clock, **kw):
         ecfg, n_frames, low_w, low_h, **kw)]
 
 
+def ref_perf_stages(spec, cam, cap):
+    """``scripts/perf_probe.py``'s stages on ``ref_world(spec)`` seen from
+    ``cam``, eagerly through ``_flat_trace_fn``: the parked trace's
+    ``its`` at ``max_supersteps=cap``, the cascade start, the prepass
+    (distance, shadow), ``min_dist_upsample`` of its distance and the
+    full-resolution primary from that start; with the world."""
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.render import pipeline
+
+    world = ref_world(spec)
+    ecfg = make_ecfg(_cfg(), spec)
+    cfg, rcfg, lcfg = ecfg.world, ecfg.render, ecfg.lighting
+    w = {k: jnp.asarray(world[k]) for k in ("trace_table", "sky_y")}
+    ca = _camera_arrays(cam)
+    tf = _flat_trace_fn(ecfg, w)
+    park = jnp.full((rcfg.height, rcfg.width), -10.0, jnp.float32)
+    ones = jnp.ones_like(park)
+    ecap = make_ecfg(_cfg(), with_render(spec, max_supersteps=cap))
+    parked = _flat_trace_fn(ecap, w)(park, park, park, ones, ones * 0,
+                                     ones * 0, ones * 0)
+    cascade = pipeline._cascade_start(tf, rcfg, ca, 0, rcfg.half_height)
+    hd, hs = pipeline.half_res_prepass(None, None, cfg, rcfg, lcfg, ca,
+                                       trace_fn=tf, sky_y=w["sky_y"])
+    start = pipeline.min_dist_upsample(hd)
+    dx, dy, dz = pipeline._ray_dirs(ca, rcfg.width, rcfg.height,
+                                    pixel_center=False)
+    prim = tf(ca.pos[0], ca.pos[1], ca.pos[2], dx, dy, dz, start)
+    return _np(dict(world=world, parked_its=parked.its, cascade=cascade,
+                    half_dist=hd, half_shadow=hs, start=start,
+                    primary={f: getattr(prim, f) for f in (
+                        "its", "hit", "t", "px", "py", "pz")}))
+
+
+def ref_quality_loop(spec, world, cams, comp_cadence):
+    """``scripts/probe_checker_motion.py``'s frame loop at ``--mode all``
+    over the given poses, written out from the script's ``main`` with the
+    JAX package's functions in its order, eagerly through
+    ``_flat_trace_fn``.  Per frame: the GI window at offset 0 with the
+    frame's number; the full-rate frame with GI and its accumulator; each
+    variant (checker, quarter, adaptive) at its tier - the adaptive one's
+    from ``AdaptiveRateScheduler.step`` on the previous and this camera,
+    checker on frame 0 - with its base frame on the tier's grid, the
+    composite on every ``comp_cadence``-th frame or when no addend is
+    carried (every frame for the adaptive one), the carried addend added
+    and clipped between, the expand, the valid mask and
+    ``temporal_upscale`` with its default taps; and the script's
+    variant-vs-full PSNR.  The SSAA target is left out: its 3x renders,
+    at shapes of their own, would cost the child another minute of eager
+    XLA:CPU compiles.  ``cams``: camera dicts of the low engine.  Returns
+    per frame the tiers, images and PSNRs."""
+    import math
+
+    import jax.numpy as jnp
+
+    from rvgrt_tpu.render import pipeline
+    from rvgrt_tpu.render.scheduler import AdaptiveRateScheduler
+    from rvgrt_tpu.scene.camera import Camera
+    from rvgrt_tpu.upscale import temporal
+
+    ops = _bench_ops(spec)
+    ecfg = ops["ecfg"]
+    h, w_ = ecfg.render.height, ecfg.render.width
+    w = {k: jnp.asarray(v) for k, v in world.items()}
+
+    def psnr(a, b):
+        mse = float(jnp.mean((a - b) ** 2))
+        return 99.0 if mse < 1e-12 else 10.0 * math.log10(1.0 / mse)
+
+    names = ("checker", "quarter", "adaptive")
+    states = {n: temporal.init_state(h, w_) for n in names}
+    addend = {n: None for n in names}
+    sched = AdaptiveRateScheduler(w_, h)
+    st_full = temporal.init_state(h, w_)
+    gi = w["gi"]
+    prev = None
+    frames = []
+    for i, cam in enumerate(cams):
+        cam_obj = Camera(pos=cam["pos"], forward=cam["forward"],
+                         right=cam["right"], up=cam["up"])
+        ca = _camera_arrays(cam)
+        gi, _ = ops["gi"](gi, w, jnp.uint32(i), jnp.int32(0))
+        full = pipeline.render_frame(
+            w["bits"], w["sdf"], gi, w["atlas"], ca, ecfg, include_gi=True,
+            sky_y=w["sky_y"], table=w["trace_table"],
+            trace_fn=_flat_trace_fn(ecfg, w))
+        out_full, st_full = temporal.temporal_upscale(
+            full.color, full.motion, full.depth, ca.jitter, st_full)
+        tiers, outs = {}, {}
+        for n in names:
+            if n != "adaptive":
+                rate = n
+            elif prev is None:
+                rate = "checker"
+            else:
+                rate = sched.step(prev, cam_obj)
+            tiers[n] = rate
+            par = (pipeline.QUARTER_PHASE_ORDER[i & 3] if rate == "quarter"
+                   else i & 1)
+            half, gb = ops["base"](w, gi, ca, jnp.int32(par), rate=rate)
+            if n == "adaptive" or i % comp_cadence == 0 or addend[n] is None:
+                col, addend[n] = ops["composite"](half.color, gb, gi,
+                                                  w["sdf"])
+            else:
+                col = jnp.clip(half.color + addend[n], 0.0, 1.0)
+            if rate == "quarter":
+                def ex(a, par=par):
+                    return pipeline.quarter_expand(a, par)
+                valid = pipeline.quarter_valid_mask(h, w_, par)
+            else:
+                def ex(a, par=par):
+                    return pipeline.checker_expand(a, par)
+                valid = pipeline.checker_valid_mask(h, w_, par)
+            outs[n], states[n] = temporal.temporal_upscale(
+                ex(col), ex(half.motion), ex(half.depth), ca.jitter,
+                states[n], valid=valid)
+        prev = Camera(pos=cam_obj.pos.copy(), forward=cam_obj.forward.copy(),
+                      right=cam_obj.right, up=cam_obj.up)
+        frames.append(dict(
+            tiers=tiers,
+            vs_full={n: psnr(out_full, o) for n, o in outs.items()},
+            images=_np(dict(outs, full=out_full))))
+    return frames
+
+
 def _main(src: str, dst: str) -> None:
     import jax
 

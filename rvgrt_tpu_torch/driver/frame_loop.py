@@ -92,6 +92,7 @@ from rvgrt_tpu_torch.scene.camera import (JITTER_SEQUENCE, Camera, Character,
                                           InputState, phase_jitter_sequence)
 from rvgrt_tpu_torch.upscale import model as up_model
 from rvgrt_tpu_torch.upscale import residual, temporal
+from rvgrt_tpu_torch.utils import profiling
 from rvgrt_tpu_torch.utils.device import resolve_device
 
 #: bench.py's interactive path, rad of yaw a frame: fast pan, slow look,
@@ -308,45 +309,59 @@ class FrameLoop:
               advance: bool = True) -> FrameResult:
         """Frame ``i`` at ``rate``.  ``advance=False``: a GI window of this
         frame keeps the last window's offset (``bench.py``'s extra warm-up
-        frames, ``:573-591``)."""
+        frames, ``:573-591``).  With spans on (``utils/profiling.py``) the
+        frame is the root span ``frame``, its id ``i``, over the stages
+        ``gi_update`` (GI frames), ``base``, ``composite`` (with GI),
+        ``expand`` and ``post``."""
+        with profiling.span("frame", frame=i):
+            return self._frame(i, cam, rate, advance)
+
+    def _frame(self, i: int, cam: pipeline.CameraArrays, rate: str,
+               advance: bool) -> FrameResult:
         w, ec = self.world, self.ecfg
         r = ec.render
         phase = frame_phase(i, rate)
         gi_ran = self.include_gi and i % self.gi_cadence == 0
         if gi_ran:
-            if self.gi_windows and advance:
-                self.offset = gi_update.advance_offset(self.offset, ec)
-            self.gi, st = gi_update.update_gi(
-                self.gi, w.bits, w.sdf, w.atlas, ec,
-                i if self.gi_frame is None else self.gi_frame, self.offset,
-                sky_y=w.sky_y, table=w.trace_table, return_stats=True)
-            self.overflow = self.overflow + st["straggler_overflow"]
-            self.gi_windows += 1
-        res = pipeline.render_frame(
-            w.bits, w.sdf, self.gi, w.atlas, cam, ec, include_gi=False,
-            sky_y=w.sky_y, table=w.trace_table,
-            return_gbuffer=self.include_gi,
-            checker_parity=phase if rate == RATE_CHECKER else None,
-            quarter_phase=phase if rate == RATE_QUARTER else None)
+            with profiling.span("gi_update"):
+                if self.gi_windows and advance:
+                    self.offset = gi_update.advance_offset(self.offset, ec)
+                self.gi, st = gi_update.update_gi(
+                    self.gi, w.bits, w.sdf, w.atlas, ec,
+                    i if self.gi_frame is None else self.gi_frame,
+                    self.offset, sky_y=w.sky_y, table=w.trace_table,
+                    return_stats=True)
+                self.overflow = self.overflow + st["straggler_overflow"]
+                self.gi_windows += 1
+        with profiling.span("base"):
+            res = pipeline.render_frame(
+                w.bits, w.sdf, self.gi, w.atlas, cam, ec, include_gi=False,
+                sky_y=w.sky_y, table=w.trace_table,
+                return_gbuffer=self.include_gi,
+                checker_parity=phase if rate == RATE_CHECKER else None,
+                quarter_phase=phase if rate == RATE_QUARTER else None)
         out, gb = res if self.include_gi else (res, None)
         if self.include_gi:
-            out = out._replace(color=self._composite(i, out.color, gb, rate,
-                                                     phase))
-        dev = out.color.device
+            with profiling.span("composite"):
+                out = out._replace(color=self._composite(
+                    i, out.color, gb, rate, phase))
         valid = None
-        if rate == RATE_CHECKER:
-            def expand(a):
-                return pipeline.checker_expand(a, phase)
-            valid = pipeline.checker_valid_mask(r.height, r.width, phase,
-                                                device=dev)
-        elif rate == RATE_QUARTER:
-            expand = pipeline.quarter_expand
-            valid = pipeline.quarter_valid_mask(r.height, r.width, phase,
-                                                device=dev)
-        if valid is not None:
-            out = out._replace(color=expand(out.color),
-                               motion=expand(out.motion),
-                               depth=expand(out.depth))
+        with profiling.span("expand"):
+            dev = out.color.device
+            if rate == RATE_CHECKER:
+                def expand(a):
+                    return pipeline.checker_expand(a, phase)
+                valid = pipeline.checker_valid_mask(r.height, r.width,
+                                                    phase, device=dev)
+            elif rate == RATE_QUARTER:
+                expand = pipeline.quarter_expand
+                valid = pipeline.quarter_valid_mask(r.height, r.width,
+                                                    phase, device=dev)
+            if valid is not None:
+                out = out._replace(color=expand(out.color),
+                                   motion=expand(out.motion),
+                                   depth=expand(out.depth))
+        with profiling.span("post"):
+            image = self._post(out, cam, valid)
         return FrameResult(rate=rate, phase=phase, gi_ran=gi_ran, out=out,
-                           hit=None if gb is None else gb.hit,
-                           image=self._post(out, cam, valid))
+                           hit=None if gb is None else gb.hit, image=image)

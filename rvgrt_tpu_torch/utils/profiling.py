@@ -1,20 +1,156 @@
-"""Tracing / profiling / structured metrics.
+"""Spans over the frame path, and a device-time profiler.
 
-The port of ``rvgrt_tpu/utils/profiling.py``.  The reference's
-observability is a RAII stopwatch, a title-bar frame-time average and
-printf (SURVEY.md §5.1/§5.5).  Here: a device-time profiler on
-``torch.profiler`` (a host clock around an eager call measures the time
-to enqueue it, not the card's), a wall-clock phase timer and a JSONL
-metrics sink whose lines are the JAX package's.
+* ``span(name, frame=None)``: a named host range around one stage of the
+  frame path (``FrameLoop.frame`` and ``pipeline.render_slab``).  Spans are
+  off unless a caller installs a tracer with ``enable()``: off, ``span``
+  checks one module global and returns one shared no-op context, records
+  nothing and allocates nothing.  On, each span records ``Span(name,
+  parent, frame, start_ns, end_ns)`` on ``time.perf_counter_ns()`` in the
+  tracer's list and, while a ``torch.profiler`` session runs, opens
+  ``record_function("rvgrt.<name>")`` for its extent, so that every span is
+  also a host range on the profiler's own timeline, the clock of the
+  device's records.  ``FrameLoop.frame(i, ...)`` opens the root span
+  ``frame`` with ``frame=i``; a span opened inside another carries its
+  frame id.  Each place on the frame path where the host waits for the
+  card opens ``sync.<what>``: the water test's read (``sync.water``) and
+  the GI upsample's two blocking uploads (``sync.gi_upsample``).  Spans
+  assume one thread renders at a time, and change no tensor.
+* ``enable()`` installs a new ``Tracer`` and returns it; ``disable()``
+  removes it.  The tracer keeps its spans in memory and writes nothing.
+* ``device_time_ms(fn, *args)``: the device time of one call under
+  ``torch.profiler`` (``chip_smoke.py --profile``).
+
+The JAX package's ``rvgrt_tpu/utils/profiling.py`` wraps ``jax.profiler``
+around a call and has no spans.
 """
 
 from __future__ import annotations
 
 import collections
-import json
-import os
 import time
-from contextlib import contextmanager
+from dataclasses import dataclass
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+
+@dataclass(slots=True)
+class Span:
+    """One span: ``parent`` is the index in ``Tracer.spans`` of the span it
+    opened inside (-1 for none), ``frame`` the frame id it carries, and
+    ``end_ns`` is -1 while it is open."""
+    name: str
+    parent: int
+    frame: int | None
+    start_ns: int
+    end_ns: int = -1
+
+
+class Tracer:
+    """The spans recorded since it was installed (or last cleared), in the
+    order they opened."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self._open: list[int] = []
+
+    def clear(self) -> None:
+        """Forget every span; call it between frames, with none open."""
+        self.spans.clear()
+        self._open.clear()
+
+    def summary(self, frames=None) -> dict:
+        """``{name: {"count", "host_ms", "self_ms"}}`` over the closed spans
+        whose frame id is in ``frames`` (every span where None): how many,
+        their summed duration and their summed self time, a span's duration
+        less that of the spans opened directly inside it."""
+        spans = self.spans
+        inner = [0] * len(spans)
+        for s in spans:
+            if s.parent >= 0 and s.end_ns >= 0:
+                inner[s.parent] += s.end_ns - s.start_ns
+        keep = None if frames is None else set(frames)
+        out: dict = {}
+        for k, s in enumerate(spans):
+            if s.end_ns < 0 or (keep is not None and s.frame not in keep):
+                continue
+            row = out.setdefault(s.name, {"count": 0, "host_ms": 0.0,
+                                            "self_ms": 0.0})
+            dur = s.end_ns - s.start_ns
+            row["count"] += 1
+            row["host_ms"] += dur / 1e6
+            row["self_ms"] += (dur - inner[k]) / 1e6
+        return out
+
+
+class _Off:
+    """The context ``span`` returns while no tracer is installed."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+#: the installed tracer, or None: spans are off
+_tracer: Tracer | None = None
+
+
+class _On:
+    __slots__ = ("tracer", "name", "frame", "index", "rf")
+
+    def __init__(self, tracer: Tracer, name: str, frame: int | None):
+        self.tracer, self.name, self.frame = tracer, name, frame
+
+    def __enter__(self):
+        t = self.tracer
+        parent = t._open[-1] if t._open else -1
+        frame = self.frame
+        if frame is None and parent >= 0:
+            frame = t.spans[parent].frame
+        # a range on the profiler's timeline while one runs (opening one
+        # costs about 12 us of host even with no profiler to see it)
+        self.rf = (record_function(f"rvgrt.{self.name}")
+                   if _profiler_enabled() else None)
+        if self.rf is not None:
+            self.rf.__enter__()
+        self.index = len(t.spans)
+        t.spans.append(Span(self.name, parent, frame, time.perf_counter_ns()))
+        t._open.append(self.index)
+        return None
+
+    def __exit__(self, *exc):
+        t = self.tracer
+        t.spans[self.index].end_ns = time.perf_counter_ns()
+        t._open.pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, frame: int | None = None):
+    """A context over one stage of the frame path (module docstring);
+    ``frame``: the frame id, given by the root span of a frame."""
+    if _tracer is None:
+        return _OFF
+    return _On(_tracer, name, frame)
+
+
+def enable() -> Tracer:
+    """Install a new tracer, in place of any installed one, and return
+    it."""
+    global _tracer
+    _tracer = Tracer()
+    return _tracer
+
+
+def disable() -> None:
+    """Remove the installed tracer: spans are off again."""
+    global _tracer
+    _tracer = None
 
 
 def device_time_ms(fn, *args, warmup: int = 1) -> tuple[float, dict]:
@@ -49,35 +185,3 @@ def device_time_ms(fn, *args, warmup: int = 1) -> tuple[float, dict]:
         return float("nan"), {}
     ops = {n: d / 1000.0 for n, d in dur.most_common(12)}
     return sum(dur.values()) / 1000.0, ops
-
-
-@contextmanager
-def phase(name: str, sink: "MetricsLog | None" = None, verbose: bool = True):
-    """Wall-clock phase timer (build phases; NOT for device kernels)."""
-    t0 = time.perf_counter()
-    yield
-    ms = (time.perf_counter() - t0) * 1e3
-    if verbose:
-        print(f"{name} took {ms:.1f} ms")
-    if sink is not None:
-        sink.log(event="phase", name=name, ms=round(ms, 2))
-
-
-class MetricsLog:
-    """Append-only JSONL metrics (frame times, build phases, bench runs)."""
-
-    def __init__(self, path: str):
-        self.path = path
-        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
-                    exist_ok=True)
-
-    def log(self, **fields):
-        fields.setdefault("ts", time.time())
-        with open(self.path, "a") as f:
-            f.write(json.dumps(fields) + "\n")
-
-    def read(self):
-        if not os.path.exists(self.path):
-            return []
-        with open(self.path) as f:
-            return [json.loads(line) for line in f if line.strip()]

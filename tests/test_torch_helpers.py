@@ -1,4 +1,4 @@
-"""The port's PNG atlas, profiling helpers, viewer and small helpers
+"""The port's PNG atlas, device-time profiler, viewer and small helpers
 against the JAX package's, on the CPU.
 
 ``world/atlas.py::load_png`` (zlib + struct, no Pillow) equals the JAX
@@ -6,8 +6,8 @@ against the JAX package's, on the CPU.
 RGBA, with each of the five row filters and with the filters mixed row by
 row; ``default_atlas`` takes ``REFERENCE_PNG`` when it exists in both
 packages and falls back to the procedural atlas on a file it cannot load.
-``MetricsLog``'s JSONL reads back in both packages; ``phase`` logs to it;
-``device_time_ms`` without a GPU reports no device time.  The viewer
+``device_time_ms`` without a GPU reports no device time (the spans of
+``utils/profiling.py``: ``tests/test_torch_spans.py``).  The viewer
 passes ``tests/test_subsystems.py``'s stub-engine round trip, its JPEGs
 from the native encoder.  ``orbit_path``, ``is_solid_density`` and
 ``clamp01`` equal JAX's.  JAX runs in this process: nothing here is
@@ -32,7 +32,6 @@ import torch
 from rvgrt_tpu.core import terrain as jterrain
 from rvgrt_tpu.core import vecmath as jvm
 from rvgrt_tpu.scene import camera as jcamera
-from rvgrt_tpu.utils import profiling as jprof
 from rvgrt_tpu.world import atlas as jatlas
 from rvgrt_tpu_torch.core import terrain, u32
 from rvgrt_tpu_torch.core import vecmath as vm
@@ -128,24 +127,6 @@ def test_decode_png_refuses_other_types(ctype, depth):
             + body + b"\0\0\0\0")
     with pytest.raises(ValueError, match="unsupported PNG"):
         atlas.decode_png(data)
-
-
-@pytest.mark.parametrize("writer", ["port", "jax"])
-def test_metrics_log_round_trip(tmp_path, writer):
-    path = str(tmp_path / "m" / "metrics.jsonl")
-    logs = (profiling.MetricsLog(path), jprof.MetricsLog(path))
-    w, r = logs if writer == "port" else logs[::-1]
-    assert r.read() == []
-    w.log(event="frame", ms=12.5)
-    w.log(event="frame", ms=13.5, ts=7.0)
-    with profiling.phase("build", sink=w, verbose=False):
-        pass
-    rows = r.read()
-    assert rows == logs[0].read() == logs[1].read()
-    assert [x["event"] for x in rows] == ["frame", "frame", "phase"]
-    assert rows[0]["ms"] == 12.5 and rows[1]["ts"] == 7.0
-    assert rows[2]["name"] == "build" and rows[2]["ms"] >= 0.0
-    assert all(set(x) >= {"event", "ts"} for x in rows)
 
 
 def test_device_time_ms_without_a_gpu():

@@ -200,7 +200,11 @@ entry point's in-process points (the command's own process is not counted),
 the probes of phase 5f, the GI init, the post modes, the CLIs, the two
 trainers' pair renders and world builds, the render switches' loops, hinted
 frame and viewer, the probe's gathers and the big worlds' builds, init and
-frames.
+frames.  The GI composite is two launches a composite of the ``GI``
+kernels (``ops/gi_kernels.py``: the cone march, the upsample with the
+composite's tail), asserted on the headline and config-4 loops and held
+bit for bit against the plain path on the headline's checkerboard and
+quarter G-buffers and config-4's native one (``check_gi``).
 Times are CUDA-event medians on the card: a kernel's ``ms`` (and the
 library call's) is the device time of a CUDA-graph replay of its launches,
 ``event_ms`` and ``plain_ms`` time the Python call itself, host included,
@@ -282,6 +286,7 @@ COUNTERS = {"K1": ("superstep_kernel", "launches"),
             "K1_zedges_slim": ("superstep_kernel", "zedges_slim_launches"),
             "K2": ("warp_kernels", "launches"),
             "K3": ("sdf_kernels", "launches"),
+            "GI": ("gi_kernels", "launches"),
             "P1": ("gather_kernels", "take_clip_launches"),
             "P2": ("gather_kernels", "take_along_cols_launches")}
 
@@ -1049,6 +1054,85 @@ def check_k2(state, motion, dev) -> dict:
                 bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 library_ms=library_ms, library_max_abs_err=lib_err,
                 max_abs_err=err, shape=f"({hh}, {hw}) u32 history")
+
+
+#: count-once bytes a full-resolution pixel of the GI composite: hit, t,
+#: normal, py, albedo, fog and colour read, colour written; and a coarse
+#: pixel: px and pz read, three radiance words written (the cone march's
+#: GI and SDF gathers are left out)
+GI_BYTES_FULL = 1 + 4 + 12 + 4 + 12 + 4 + 12 + 12
+GI_BYTES_COARSE = 8 + 12
+
+
+def check_gi(w, ecfg, ecfg4, cam, cam4, dev) -> dict:
+    """The GI composite's two kernels against the plain path on the main
+    paths' G-buffers: the headline's checkerboard (800 x 640) and
+    quarter-rate (400 x 640) grids at ``cam``, config-4's full grid
+    (1080 x 1920) at ``cam4``.  Per grid: the composite and the upsample
+    alone (``gather_gi_image``), each bit for bit or its largest gap; the
+    composite's two launches graph-timed together and each alone, beside
+    their count-once bound; the call's and the plain composite's time."""
+    import torch
+
+    from rvgrt_tpu_torch.ops import gi_kernels
+    from rvgrt_tpu_torch.render import pipeline
+    from rvgrt_tpu_torch.utils.timer import graph_ms, timed_ms
+
+    shapes = {}
+    for name, e, c, kw in (("checker", ecfg, cam, dict(checker_parity=1)),
+                           ("quarter", ecfg, cam, dict(quarter_phase=3)),
+                           ("native", ecfg4, cam4, {})):
+        cfg, rcfg, lcfg = e.world, e.render, e.lighting
+        base, gb = pipeline.render_frame(
+            w.bits, w.sdf, w.gi, w.atlas, c, e, include_gi=False,
+            sky_y=w.sky_y, table=w.trace_table, return_gbuffer=True, **kw)
+        args = (base.color, gb, w.gi, w.sdf, e)
+
+        def comp():
+            return pipeline.gi_composite(*args, gi_occ=w.gi_occ)
+
+        n0 = gi_kernels.launches
+        got = comp()
+        launches = gi_kernels.launches - n0
+        want = pipeline.gi_composite_plain(*args, gi_occ=w.gi_occ)
+        planes = pipeline.gather_gi_image(gb, w.gi, w.sdf, cfg, rcfg, lcfg,
+                                          gi_occ=w.gi_occ)
+        plain = pipeline.gather_gi_image_plain(gb, w.gi, w.sdf, cfg, rcfg,
+                                               lcfg, gi_occ=w.gi_occ)
+        err = float((got - want).abs().max())
+        up_err = max(float((a - b).abs().max()) for a, b in zip(planes,
+                                                                plain))
+        exact = _bits(got).equal(_bits(want)) and all(
+            _bits(a).equal(_bits(b)) for a, b in zip(planes, plain))
+        assert launches == 2, launches
+        assert err <= 2e-5 and up_err <= 2e-5, (name, err, up_err)
+        h, wd = gb.hit.shape
+        d = pipeline.gi_divisor(h, wd, rcfg.gi_res_divisor)
+        tbl = pipeline._cone_table(w.gi, w.sdf, cfg, rcfg, w.gi_occ)
+        words = w.gi if tbl is None else tbl
+        p = gi_kernels._params(h, wd, d, cfg, rcfg, lcfg,
+                               gi_kernels.COMPOSITE)
+
+        def cone():
+            return gi_kernels._cone_march(gb, words, w.sdf, cfg, d,
+                                          tbl is not None, p)
+
+        coarse = cone()
+        bytes_ = h * wd * GI_BYTES_FULL + (h // d) * (wd // d) * \
+            GI_BYTES_COARSE
+        shapes[name] = dict(
+            shape=f"({h}, {wd}) G-buffer, d {d}", launches=launches,
+            ms=graph_ms(comp, dev, calls=10),
+            cone_ms=graph_ms(cone, dev, calls=10),
+            upsample_ms=graph_ms(lambda: gi_kernels._upsample(
+                coarse, gb, p, color=base.color), dev, calls=10),
+            event_ms=timed_ms(lambda _: comp(), dev),
+            plain_ms=timed_ms(lambda _: pipeline.gi_composite_plain(
+                *args, gi_occ=w.gi_occ), dev, reps=3, warmup=1),
+            bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            max_abs_err=max(err, up_err), bit_exact=exact)
+        log(f"GI composite {name}: {shapes[name]}")
+    return dict(shapes["checker"], library_ms=None, shapes=shapes)
 
 
 #: int32 lane operations per tap pair (one output, one offset) of K3's
@@ -3362,6 +3446,10 @@ KERNELS = {
     "K3": dict(name="minconv_pass",
                source="rvgrt_tpu_torch/csrc/sdf_kernels.cu",
                replaces="rvgrt_tpu/ops/sdf_kernels.py:82"),
+    "GI": dict(name="gi_cone_march + gi_upsample_composite",
+               source="rvgrt_tpu_torch/csrc/gi_kernels.cu",
+               replaces="none (rvgrt_tpu/render/pipeline.py::gi_composite, "
+                        "fused by XLA)"),
     "P1": dict(name="take_clip",
                source="rvgrt_tpu_torch/csrc/gather_kernels.cu",
                replaces="scripts/probe_r7.py:103"),
@@ -3444,6 +3532,9 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     assert rep["tier_mix"] == expected_mix(frames), rep["tier_mix"]
     check_launches(counts["headline"], stats, len(head["ms"]),
                    head["loop"].gi_windows)
+    # a composite every frame, two launches each
+    assert counts["headline"]["GI"] == 2 * len(head["ms"]), counts
+
     lap("headline")
 
     # ---- main path: config-4, 1920x1080 native on the same world ----
@@ -3462,6 +3553,8 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     assert rep4["tier_mix"] == expected_mix(c4_frames), rep4["tier_mix"]
     check_launches(counts["config4"], stats, len(c4["ms"]),
                    c4["loop"].gi_windows)
+    assert counts["config4"]["GI"] == 2 * len(c4["ms"]), counts
+
     lap("config4")
 
     # ---- main path: the entry point, python -m rvgrt_tpu_torch.bench, and
@@ -3574,10 +3667,13 @@ def run(dev, cube: int, frames: int, c4_frames: int, full_frames: int,
     k2["config4"] = check_k2(c4["loop"].state, c4["results"][-1].out.motion,
                              dev)
     k2["cli"] = check_k2(cli_last["state"], cli_last["motion"], dev)
-    del head, c4, cli_last
     lap("check_k2")
+    gi = check_gi(w, ecfg, ecfg4, head["cams"][-1][1], c4["cams"][-1][1],
+                  dev)
+    del head, c4, cli_last
+    lap("check_gi")
     checks = {"K1": k1, "K2": k2, "K3": check_k3(w.bits, cfg, dev),
-              **probe["checks"]}
+              "GI": gi, **probe["checks"]}
     lap("check_k3")
 
     # ---- optional: where a frame's time goes ----

@@ -28,8 +28,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("gather_kernels.cu", "lib.cu", "sdf_kernels.cu",
-           "superstep_kernel.cu", "warp_kernels.cu")
+SOURCES = ("gather_kernels.cu", "gi_kernels.cu", "lib.cu",
+           "sdf_kernels.cu", "superstep_kernel.cu", "warp_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 
@@ -42,9 +42,22 @@ TRACE_PARAMS = ("size_x", "size_y", "size_z", "shift_x", "shift_y",
                 "max_major_iterations", "max_dda_steps", "jump_min_dist",
                 "dda_substeps")
 
+#: The GI composite's parameter struct, ``GiParams`` in
+#: ``csrc/gi_kernels.cu``: these ints, then these floats.
+GI_INT_PARAMS = ("h", "w", "d", "off", "hc", "wc", "steps",
+                 "sdf_coarseness", "sdf_size_x", "sdf_size_y", "sdf_size_z",
+                 "sdf_num_cells", "gi_coarseness", "gi_size_x", "gi_size_y",
+                 "gi_size_z", "gi_num_cells", "mode")
+GI_FLOAT_PARAMS = ("cur0", "step_size", "max_distance", "tan_angle",
+                   "inv_cones", "rel_thresh", "gi_strength",
+                   "ambient_strength", "water_level", "sun_x", "sun_y",
+                   "sun_z", "sun_disc_cos", "sun_r", "sun_g", "sun_b",
+                   "hor_r", "hor_g", "hor_b", "zen_r", "zen_g", "zen_b")
+
 _lock = threading.Lock()
 _lib = None
 _trace_params_type = None
+_gi_params_type = None
 build_seconds = None  # wall time of this process's build, if it built
 
 
@@ -115,6 +128,20 @@ def trace_params_type():
     return _trace_params_type
 
 
+def gi_params_type():
+    """The ctypes struct of the GI kernels' parameters (made on first
+    use)."""
+    global _gi_params_type
+    if _gi_params_type is None:
+        import ctypes
+
+        class GiParams(ctypes.Structure):
+            _fields_ = ([(k, ctypes.c_int) for k in GI_INT_PARAMS]
+                        + [(k, ctypes.c_float) for k in GI_FLOAT_PARAMS])
+        _gi_params_type = GiParams
+    return _gi_params_type
+
+
 def _declare(lib) -> None:
     """Set every C entry point's signature, once, when the library loads."""
     import ctypes
@@ -125,6 +152,8 @@ def _declare(lib) -> None:
         "rvgrt_trace": ([trace_params_type()] + [vp] * 22 + [ci] * 7
                         + [vp, vp], ci),
         "rvgrt_warp_bilinear": ([vp] * 4 + [ci, ci, cll, vp], ci),
+        "rvgrt_gi_cone_march": ([gi_params_type(), ci] + [vp] * 10, ci),
+        "rvgrt_gi_upsample_composite": ([gi_params_type()] + [vp] * 15, ci),
         "rvgrt_minconv_mid": ([vp, vp, ci, ci, cll, ci, vp], ci),
         "rvgrt_gather": ([ci, vp, cll, ci, vp, vp, cll, cll, ci, ci, cll,
                           ctypes.c_float, vp], ci),

@@ -15,7 +15,9 @@ single slab, at full, checkerboard or quarter rate - the branches
      miss (sky); exponential fog;
   5. motion vectors and clip depth from the two view-projection matrices.
 
-Every trace goes through ``wavefront.trace`` and so, on a GPU, kernel K1.
+Every trace goes through ``wavefront.trace`` and so, on a GPU, kernel K1;
+on a GPU the GI gather and composite are the two kernels of
+``ops/gi_kernels.py``, and their plain versions stay here.
 The checker and quarter rates cut the primary grid before the primary
 trace (``checker_select`` / ``quarter_select``); their expands and valid
 masks are here too, and ``gi_composite(return_addend=True)`` hands out
@@ -35,6 +37,7 @@ import torch
 
 from rvgrt_tpu_torch.config import EngineConfig
 from rvgrt_tpu_torch.core import vecmath as vm
+from rvgrt_tpu_torch.ops import gi_kernels
 from rvgrt_tpu_torch.render import shading
 from rvgrt_tpu_torch.trace import wavefront
 from rvgrt_tpu_torch.utils import profiling
@@ -487,24 +490,50 @@ def _gi_joint_upsample(cir, cig, cib, c_t, c_code, c_valid,
     return out[0], out[1], out[2]
 
 
+def gi_divisor(h: int, w: int, d: int) -> int:
+    """The GI gather's divisor on an (h, w) grid: ``d`` halved while it
+    does not divide both, and 1 at the least."""
+    while d > 1 and (h % d or w % d):
+        d //= 2
+    return max(d, 1)
+
+
+def _cone_table(gi, sdf, cfg, rcfg, gi_occ):
+    """With ``rcfg.gi_fused_cone`` the fused cone table (radiance | the
+    occlusion mip ``gi_occ``, built from ``sdf`` when None), else None."""
+    if not rcfg.gi_fused_cone:
+        return None
+    occ = gi_occ if gi_occ is not None \
+        else gi_grid.build_occlusion(sdf, cfg)
+    return gi_grid.make_cone_table(gi, occ)
+
+
 def gather_gi_image(res, gi, sdf, cfg, rcfg, lcfg, gi_occ=None):
     """Per-pixel indirect light for a traced frame: cones march every
     ``gi_res_divisor``-th pixel and the result is geometry-aware
     upsampled.  With ``rcfg.gi_fused_cone`` each cone step reads one word
     of the fused cone table (radiance | the occlusion mip ``gi_occ``, built
-    from ``sdf`` when None)."""
-    cone_tbl = None
-    if rcfg.gi_fused_cone:
-        occ = gi_occ if gi_occ is not None \
-            else gi_grid.build_occlusion(sdf, cfg)
-        cone_tbl = gi_grid.make_cone_table(gi, occ)
+    from ``sdf`` when None).  CUDA tensors go through the two kernels of
+    ``ops/gi_kernels.py``, CPU tensors through
+    ``gather_gi_image_plain``."""
+    if res.hit.device.type == "cpu":
+        return gather_gi_image_plain(res, gi, sdf, cfg, rcfg, lcfg,
+                                     gi_occ=gi_occ)
+    tbl = _cone_table(gi, sdf, cfg, rcfg, gi_occ)
     h, w = res.hit.shape
-    d = rcfg.gi_res_divisor
-    while d > 1 and (h % d or w % d):
-        d //= 2
+    return gi_kernels.gather_gi_image_cuda(
+        res, gi if tbl is None else tbl, sdf, cfg, rcfg, lcfg,
+        gi_divisor(h, w, rcfg.gi_res_divisor), tbl is not None)
+
+
+def gather_gi_image_plain(res, gi, sdf, cfg, rcfg, lcfg, gi_occ=None):
+    """``gather_gi_image`` in plain PyTorch, on any device."""
+    cone_tbl = _cone_table(gi, sdf, cfg, rcfg, gi_occ)
+    h, w = res.hit.shape
+    d = gi_divisor(h, w, rcfg.gi_res_divisor)
     hpos = (res.px, res.py, res.pz)
     normal = (res.nx, res.ny, res.nz)
-    if d <= 1:
+    if d == 1:
         return shading.gather_gi(hpos, normal, gi, sdf, cfg, lcfg,
                                  cone_table=cone_tbl)
     off = d // 2
@@ -845,10 +874,26 @@ def gi_composite(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig,
     the fog transmittance the base was composited with.  With
     ``return_addend``: ``(out, add)``, the added-light image too, for
     re-adding to a later frame's base (``bench.py``'s composite cadence:
-    indirect light is low-frequency and geometry-attached)."""
+    indirect light is low-frequency and geometry-attached).  CUDA tensors
+    go through the two kernels of ``ops/gi_kernels.py``, CPU tensors
+    through ``gi_composite_plain``."""
+    if gb.hit.device.type == "cpu":
+        return gi_composite_plain(color, gb, gi, sdf, ecfg, gi_occ=gi_occ,
+                                  return_addend=return_addend)
+    tbl = _cone_table(gi, sdf, ecfg.world, ecfg.render, gi_occ)
+    h, w = gb.hit.shape
+    return gi_kernels.gi_composite_cuda(
+        color, gb, gi if tbl is None else tbl, sdf, ecfg,
+        gi_divisor(h, w, ecfg.render.gi_res_divisor), tbl is not None,
+        return_addend=return_addend)
+
+
+def gi_composite_plain(color, gb: GBuffer, gi, sdf, ecfg: EngineConfig,
+                       gi_occ=None, return_addend: bool = False):
+    """``gi_composite`` in plain PyTorch, on any device."""
     cfg, rcfg, lcfg = ecfg.world, ecfg.render, ecfg.lighting
-    ir, ig, ib = gather_gi_image(gb, gi, sdf, cfg, rcfg, lcfg,
-                                 gi_occ=gi_occ)
+    ir, ig, ib = gather_gi_image_plain(gb, gi, sdf, cfg, rcfg, lcfg,
+                                       gi_occ=gi_occ)
     albedo = (gb.albedo_r, gb.albedo_g, gb.albedo_b)
     normal = (gb.nx, gb.ny, gb.nz)
     indirect = vm.mul((ir, ig, ib),

@@ -13,7 +13,8 @@
   ``frame`` with ``frame=i``; a span opened inside another carries its
   frame id.  Each place on the frame path where the host waits for the
   card opens ``sync.<what>``: the water test's read (``sync.water``) and
-  the GI upsample's two blocking uploads (``sync.gi_upsample``).  Spans
+  the plain GI upsample's two blocking uploads (``sync.gi_upsample``;
+  the CUDA kernels of ``ops/gi_kernels.py`` make none).  Spans
   assume one thread renders at a time, and change no tensor.
 * ``enable()`` installs a new ``Tracer`` and returns it; ``disable()``
   removes it.  The tracer keeps its spans in memory and writes nothing.

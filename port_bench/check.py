@@ -14,19 +14,24 @@ The numbers compared, each against its limit in ``limits/<workload>.json``:
   the frame's colour, motion and depth at render size, after the GI
   composite and the expand to the full grid;
 * ``image_err``: the largest absolute gap of the displayed image (the
-  accumulator's output, or the colour where there is no post stage).
+  accumulator's or the learned upscaler's output, or the colour where there
+  is no post stage).
 
 The checked frames are the chain, the run's first ``CHAIN_FRAMES`` frames
 (warm-up frames at the start pose, then window frames, which move, where
 there are fewer), and one window frame drawn from the seed.  The reference
 renders each at the tier its own copy of the scheduler picks over the run's
 poses.  Along the chain it starts from the world and an empty accumulator
-and carries its own GI words and accumulator state from frame to frame, so
+and carries its own GI words, post-stage state (the accumulator's, or the
+learned upscaler's last image) and composite addend from frame to frame, so
 a fault that builds up in that state over the chain shows.  For the window
-frame it starts from the port's GI words and accumulator state before the
-frame: following the whole window would cost a plain frame (5-9 s on the
-card) for each of its frames.  A window frame that lies in the chain is
-checked there alone.
+frame it starts from the port's GI words, post-stage state and carried
+addend before the frame: following the whole window would cost a plain
+frame (5-9 s on the card) for each of its frames.  A window frame that lies
+in the chain is checked there alone.  Where the post stage is ``"net"``,
+the reference's net (``reference/upscaler.py``, float32 with flax's
+bfloat16 roundings) is loaded from the configuration's checkpoint, the file
+the port loads its net from.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from port_bench.drive import CHAIN
 from port_bench.reference import config as rcfg
 from port_bench.reference import frame as rframe
 from port_bench.reference import pipeline as rpipe
+from port_bench.reference import upscaler as rup
 from port_bench.reference.scheduler import AdaptiveRateScheduler
 
 NUMBERS = ("world_mismatch", "gi_mismatch", "color_err", "motion_err",
@@ -86,16 +92,20 @@ def compare(cell: spec.Cell, port_world, kept: dict, poses, warm_rates,
     """The numbers of ``NUMBERS`` for a run's kept world and frames.
     ``lowp``: the control, the reference in bfloat16 in the port's place
     (its world's density and GI radiance and its frames' images rounded to
-    bfloat16), held against the reference; ``port_world`` is then that
-    world, ``reference.frame.build_world(lowp=True)``, or None to build
-    it.  ``ref``: the reference's world, or None to build it."""
+    bfloat16, the learned upscaler's convs in float8), held against the
+    reference; ``port_world`` is then that world,
+    ``reference.frame.build_world(lowp=True)``, or None to build it.
+    ``ref``: the reference's world, or None to build it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ecfg = spec.engine_config(cell.config, rcfg)
     lc = cell.config["loop"]
     dev = torch.device(device)
+    net_path = cell.net_path()
     args = dict(upscaler=lc["post"], gi_cadence=lc["gi_cadence"],
-                include_gi=lc["include_gi"], warp_taps=lc["warp_taps"])
+                include_gi=lc["include_gi"], warp_taps=lc["warp_taps"],
+                comp_cadence=lc.get("comp_cadence", 1),
+                net=None if net_path is None else rup.load(net_path).to(dev))
     chain = sorted((kp for k, kp in kept.items() if k.startswith(CHAIN)),
                    key=lambda kp: kp.index)
     if [kp.index for kp in chain] != list(range(len(chain))):
@@ -114,19 +124,21 @@ def compare(cell: spec.Cell, port_world, kept: dict, poses, warm_rates,
             nums[k] = 0 if k == "gi_mismatch" else 0.0
 
         def one(kp, ref_in, low_in, what):
-            """Frame ``kp`` from the reference's (GI words, state)
+            """Frame ``kp`` from the reference's (GI words, state, addend)
             ``ref_in``, held against the port's outputs, or with ``lowp``
             against the control's from ``low_in``; returns both sides'
-            (GI words, state) after it."""
+            (GI words, state, addend) after it."""
             i = kp.index
+            gi, state, addend = ref_in
             want = rframe.frame(ref, ecfg, i, _cam(kp.pose, dev), tiers[i],
-                                *ref_in, offsets[i], **args)
+                                gi, state, offsets[i], addend=addend, **args)
             if lowp:
+                gi, state, addend = low_in
                 got = rframe.frame(port_world, ecfg, i, _cam(kp.pose, dev),
-                                   tiers[i], *low_in, offsets[i], lowp=True,
-                                   **args)
+                                   tiers[i], gi, state, offsets[i],
+                                   addend=addend, lowp=True, **args)
                 got["gi_out"] = got["gi"]
-                low_out = (got["gi"], got["state"])
+                low_out = (got["gi"], got["state"], got["addend"])
             else:
                 got = {"gi_out": kp.gi_out, "color": kp.color,
                        "motion": kp.motion, "depth": kp.depth,
@@ -138,16 +150,17 @@ def compare(cell: spec.Cell, port_world, kept: dict, poses, warm_rates,
                                        _err(got[k], want[k]))
             log(f"checked frame {i} ({what}; {tiers[i]}; the port's "
                 f"{kp.rate})")
-            return (want["gi"], want["state"]), low_out
+            return (want["gi"], want["state"], want["addend"]), low_out
 
         def start():
+            # frame 0 composites, so no addend is read before one is made
             return rframe.init_state(ecfg, lc["scale"], lc["post"], dev)
-        ref_in = (ref.gi, start())
-        low_in = (port_world.gi, start()) if lowp else None
+        ref_in = (ref.gi, start(), None)
+        low_in = (port_world.gi, start(), None) if lowp else None
         for kp in chain:
             ref_in, low_in = one(kp, ref_in, low_in, "chain")
         if window is not None and window.index >= len(chain):
-            port_in = (window.gi_in, window.state_in)
+            port_in = (window.gi_in, window.state_in, window.addend_in)
             one(window, port_in, port_in, "from the port's state")
     return nums
 

@@ -8,11 +8,12 @@ For each seed of ``--seeds`` a run of the cell as ``port_bench.run`` makes
 it (set-up on a world built once for all seeds, a window of ``--seconds``
 at the cell's own load, the check), and its numbers: the lower readings.
 For each seed of ``--control-seeds`` the control too, the reference in
-bfloat16 in the port's place on the same poses and kept frames: the upper
-readings.  One JSON line a seed on stdout (and in ``--out``), then the
-largest reading of the port and the smallest of the control for each
-number, beside the limit the cell has now.  The benchmark's own runs do
-not run it.
+bfloat16 in the port's place (the learned upscaler's convs in float8, where
+the post stage is ``"net"``; a composite cadence carried as the port
+carries it) on the same poses and kept frames: the upper readings.  One
+JSON line a seed on stdout (and in ``--out``), then the largest reading of
+the port and the smallest of the control for each number, beside the limit
+the cell has now.  The benchmark's own runs do not run it.
 """
 
 from __future__ import annotations

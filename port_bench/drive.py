@@ -2,29 +2,35 @@
 sub-window of one cell.
 
 Set-up loads the kernels, builds the world (``build_world(phase_times=)``),
-makes the ``FrameLoop`` of the cell's configuration and warms each (rate
-tier, GI) variant that the cell's frames use, once, at the first pose.  The
-window then calls ``FrameLoop.frame(i, cam, rate)`` until the host clock
-has run ``seconds``, each frame's rate the program's pick (its
-``AdaptiveRateScheduler`` over consecutive poses, or the configuration's
-fixed tier), each frame issued when the host returns from the last: one
-user who waits for each frame.  After each frame's last launch one CUDA
-event is recorded; none is read until the window has ended, so frame
-``i``'s time is the interval between the completion events of frames
-``i - 1`` and ``i``, when its image is ready to present.
+loads the learned upscaler where the configuration's post stage is
+``"net"`` (``upscale/model.py::load_checkpoint`` of ``loop.net``), makes
+the ``FrameLoop`` of the cell's configuration (its ``comp_cadence`` too)
+and warms each (rate tier, GI) variant that the cell's frames use, once,
+at the first pose.  The window then calls ``FrameLoop.frame(i, cam,
+rate)`` until the host clock has run ``seconds``, each frame's rate the
+program's pick (its ``AdaptiveRateScheduler`` over consecutive poses, or
+the configuration's fixed tier), each frame issued when the host returns
+from the last: one user who waits for each frame.  After each frame's last
+launch one CUDA event is recorded; none is read until the window has
+ended, so frame ``i``'s time is the interval between the completion events
+of frames ``i - 1`` and ``i``, when its image is ready to present.
 
 A traced run goes on after the window: it looks ahead along the flight for
 the first ``sub_frames`` frames that hold each variant twice, runs the
 frames before them without the profiler, and runs them under
 ``torch.profiler``, the frame before them in the profiler's warm-up step.
+The program's spans (``rvgrt_tpu_torch/utils/profiling.py``) are on for
+the profiled frames alone, never in the measured window, so that
+``rec.trace["stages"]`` holds the sub-window's launches, device and idle
+time put down to each span (``stages.attribute``).
 
 For the check the run keeps, as references and without a copy (the frame
 loop makes new tensors each frame), the outputs of the chain, the run's
 first ``CHAIN_FRAMES`` frames (warm-up frames, then window frames where
 there are fewer), which the reference follows from the world with its own
 GI words and accumulator, and, for one window frame drawn from the seed by
-reservoir sampling, the GI words and accumulator state it started from and
-its outputs.
+reservoir sampling, the GI words, post-stage state and carried composite
+addend it started from and its outputs.
 """
 
 from __future__ import annotations
@@ -93,13 +99,15 @@ def chain_key(i: int) -> str:
 @dataclass
 class Kept:
     """What the check compares of one frame: its index, rate and pose, the
-    state it started from (None for a frame of the chain, which the
-    reference follows with its own), and what it produced."""
+    state it started from (GI words, post-stage state and, with a
+    composite cadence, the carried addend; None for a frame of the chain,
+    which the reference follows with its own), and what it produced."""
     index: int
     rate: str
     pose: flight_mod.Pose
     gi_in: torch.Tensor | None
     state_in: object
+    addend_in: torch.Tensor | None
     gi_out: torch.Tensor
     color: torch.Tensor
     motion: torch.Tensor
@@ -157,6 +165,7 @@ class PortRun:
         from rvgrt_tpu_torch.driver import engine, frame_loop
         from rvgrt_tpu_torch.render import pipeline
         from rvgrt_tpu_torch.render.scheduler import AdaptiveRateScheduler
+        from rvgrt_tpu_torch.upscale import model as up_model
 
         ecfg, lc, dev = self.ecfg, self.loopcfg, self.dev
         if dev.type == "cuda":
@@ -178,8 +187,12 @@ class PortRun:
             self.cell.traffic, self.seed, col, top, wc.size_y,
             (r.width, r.height, r.display_width, r.display_height,
              r.fov_degrees), lc["post"])
+        net_path = self.cell.net_path()
+        net = None if net_path is None else up_model.load_checkpoint(
+            str(net_path), dev)
         self.loop = frame_loop.FrameLoop(
             self.world, ecfg, scale=lc["scale"], upscaler=lc["post"],
+            net=net, comp_cadence=lc.get("comp_cadence", 1),
             gi_cadence=lc["gi_cadence"], include_gi=lc["include_gi"],
             gi_frame=None, warp_taps=lc["warp_taps"])
         self.cam_type = pipeline.CameraArrays
@@ -224,7 +237,8 @@ class PortRun:
         under these keys; a frame of the chain is kept under its key of the
         chain too, without its state."""
         cam = upload(self.poses[i], self.dev, self.cam_type)
-        gi_in, state_in = self.loop.gi, self.loop.state
+        loop = self.loop
+        gi_in, state_in, addend_in = loop.gi, loop.state, loop.addend
         t0 = time.perf_counter()
         res = self.loop.frame(i, cam, self.rates[i])
         host = time.perf_counter() - t0
@@ -235,7 +249,8 @@ class PortRun:
             self.kept[key] = Kept(
                 index=i, rate=self.rates[i], pose=self.poses[i],
                 gi_in=None if chain else gi_in,
-                state_in=None if chain else state_in, gi_out=self.loop.gi,
+                state_in=None if chain else state_in,
+                addend_in=None if chain else addend_in, gi_out=loop.gi,
                 color=res.out.color, motion=res.out.motion,
                 depth=res.out.depth, image=res.image)
         return res, host
@@ -306,12 +321,14 @@ class PortRun:
         return first
 
     def traced(self) -> None:
-        """The profiled sub-window (module docstring); fills
-        ``rec.trace``."""
+        """The profiled sub-window (module docstring), with the program's
+        spans on; fills ``rec.trace``."""
         from torch.profiler import ProfilerActivity, profile, schedule
         from torch.profiler import record_function
 
+        from port_bench import stages
         from rvgrt_tpu_torch.ops import superstep_kernel
+        from rvgrt_tpu_torch.utils import profiling
 
         n = self.loopcfg["sub_frames"]
         for attempt in range(PROFILE_TRIES):
@@ -325,28 +342,36 @@ class PortRun:
                 got["events"] = p.profiler.kineto_results.events()
 
             acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with profile(activities=acts, on_trace_ready=ready,
-                         schedule=schedule(wait=0, warmup=1, active=1,
-                                           repeat=1)) as prof:
-                self.frame(self.advance())
-                self.sync()
-                time.sleep(PROFILE_MARGIN_S)
-                prof.step()
-                time.sleep(PROFILE_MARGIN_S)
-                k1_before = superstep_kernel.launches
-                tiers = []
-                with record_function("pb.subwindow"):
-                    for _ in range(n):
-                        i = self.advance()
-                        tiers.append((self.rates[i], self.gi_ran(i)))
-                        self.frame(i)
-                self.sync()
-                k1_launched = superstep_kernel.launches - k1_before
-                time.sleep(PROFILE_MARGIN_S)
-                prof.step()
-            trace = summarise(got.get("events", []), n)
+            profiling.enable()
+            try:
+                with profile(activities=acts, on_trace_ready=ready,
+                             schedule=schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)) as prof:
+                    self.frame(self.advance())
+                    self.sync()
+                    time.sleep(PROFILE_MARGIN_S)
+                    prof.step()
+                    time.sleep(PROFILE_MARGIN_S)
+                    k1_before = superstep_kernel.launches
+                    tiers = []
+                    with record_function("pb.subwindow"):
+                        for _ in range(n):
+                            i = self.advance()
+                            tiers.append((self.rates[i], self.gi_ran(i)))
+                            self.frame(i)
+                    self.sync()
+                    k1_launched = superstep_kernel.launches - k1_before
+                    time.sleep(PROFILE_MARGIN_S)
+                    prof.step()
+            finally:
+                profiling.disable()
+            events = got.get("events", [])
+            trace = summarise(events, n)
             trace.update(variants=tiers, k1_launched=k1_launched,
                          attempt=attempt)
+            if trace.get("span_s"):
+                trace["stages"] = stages.attribute(events, n)
+                trace["stages"]["gi_frames"] = sum(g for _, g in tiers)
             self.rec.trace = trace
             if trace["k1_records"] == k1_launched:
                 return
@@ -361,8 +386,10 @@ def _short(name: str, n: int = 120) -> str:
 #: the profiler's activities that are device work (it also puts the host's
 #: annotated ranges, such as its steps, on the device's timeline)
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
-#: the names of those annotated ranges, where an event has no activity type
-ANNOTATIONS = ("ProfilerStep", "pb.")
+#: the names of those annotated ranges (the profiler's steps, the harness's
+#: ``pb.*`` and the program's spans ``rvgrt.*``), where an event has no
+#: activity type
+ANNOTATIONS = ("ProfilerStep", "pb.", "rvgrt.")
 
 
 def _device_op(e) -> bool:
@@ -388,7 +415,7 @@ def summarise(events, frames: int) -> dict:
                 dev_ops.append((start, start + dur, name))
         elif name == "pb.subwindow":
             t0 = start
-        elif not name.startswith("ProfilerStep"):
+        elif not name.startswith(ANNOTATIONS):
             cpu_ops.append((start, start + dur, name))
     if t0 is None or not dev_ops:
         return dict(k1_records=0, frames=frames, ops=0)

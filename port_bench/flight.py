@@ -43,6 +43,7 @@ from port_bench.reference import camera as cam_mod
 #: the 3x accumulator's jitter (it needs every display phase), else the
 #: reference's 8-phase table (``frame_loop.jitter_sequence``)
 JITTER = {"temporal": lambda: cam_mod.phase_jitter_sequence(3),
+          "net": lambda: cam_mod.JITTER_SEQUENCE,
           "none": lambda: cam_mod.JITTER_SEQUENCE}
 
 

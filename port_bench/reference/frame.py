@@ -4,16 +4,24 @@ frame loop (``rvgrt_tpu_torch/driver/engine.py::build_world``,
 configuration, a camera and the state the frame starts from.
 
 Plain PyTorch on the modules beside this one, which are frozen copies of the
-port's plain paths; it imports nothing of the port.  It runs the modes the
-benchmark's configurations use: the post stage ``"temporal"`` (the 3x or 1x
-accumulator) or ``"none"``, a composite every frame.
+port's plain paths, and on ``upscaler.py``, the learned upscaler written
+from the JAX package; it imports nothing of the port.  It runs the modes
+the benchmark's configurations use: the post stage ``"temporal"`` (the 3x
+or 1x accumulator), ``"net"`` (the learned upscaler at 3x, its history the
+last image) or ``"none"``, and a GI composite every frame or, with
+``comp_cadence`` > 1, every that many frames, the frames between re-adding
+the last composite's carried addend, selected at their own rate and phase
+(``FrameLoop._composite``).
 
 ``lowp=True`` is the control of the benchmark's comparison: every float
 image a frame hands from one stage to the next (the shaded colour, the
-composite, the expanded colour, motion and depth, the accumulator's output
-and history) is rounded to bfloat16, the precision a later change might
-store them in, and so are the GI update's blended radiance and, in the
-world build, the terrain's density; the tracer's positions stay float32.
+composite and its carried addend, the expanded colour, motion and depth,
+the post stage's output and history) is rounded to bfloat16, the precision
+a later change might store them in, and so are the GI update's blended
+radiance and, in the world build, the terrain's density; the tracer's
+positions stay float32.  The learned upscaler's convs take their inputs
+and kernels in float8 (e4m3), the step below the bfloat16 they are
+configured in.
 """
 
 from __future__ import annotations
@@ -24,11 +32,12 @@ import torch
 
 from . import atlas as atlas_mod
 from . import gi_update, pipeline, sdf as sdf_mod, temporal, voxel_grid
+from . import upscaler as up_ref
 from . import wavefront
 from .config import EngineConfig
 from .scheduler import RATE_CHECKER, RATE_QUARTER
 
-POST_STAGES = ("temporal", "none")
+POST_STAGES = ("temporal", "net", "none")
 
 
 @dataclass
@@ -89,10 +98,14 @@ def frame_phase(i: int, rate: str) -> int:
 
 
 def init_state(ecfg: EngineConfig, scale: int, upscaler: str, device):
-    """The post stage's state before the first frame."""
+    """The post stage's state before the first frame: the accumulator's,
+    the net's black (3H, 3W, 3) history, or None."""
     if upscaler == "none":
         return None
     r = ecfg.render
+    if upscaler == "net":
+        return torch.zeros(r.height * up_ref.SCALE, r.width * up_ref.SCALE,
+                           3, dtype=torch.float32, device=device)
     return temporal.init_state(r.height, r.width, scale=scale, device=device)
 
 
@@ -100,16 +113,43 @@ def _q(x: torch.Tensor, lowp: bool) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32) if lowp else x
 
 
+def _composite(color, gb, gi, world: World, ecfg: EngineConfig, i: int,
+               rate: str, phase: int, comp_cadence: int, addend, lowp: bool):
+    """The composited colour of frame ``i`` and the addend carried on
+    (module docstring)."""
+    if comp_cadence == 1:
+        return _q(pipeline.gi_composite(color, gb, gi, world.sdf, ecfg),
+                  lowp), addend
+    if i % comp_cadence:
+        add = addend
+        if rate == RATE_CHECKER:
+            add = pipeline.checker_select(add, phase)
+        elif rate == RATE_QUARTER:
+            add = pipeline.quarter_select(add, phase)
+        return _q(torch.clamp(color + add, 0.0, 1.0), lowp), addend
+    color, add = pipeline.gi_composite(color, gb, gi, world.sdf, ecfg,
+                                       return_addend=True)
+    if rate == RATE_CHECKER:
+        add = pipeline.checker_expand(add, phase)
+    elif rate == RATE_QUARTER:
+        add = pipeline.quarter_expand(add)
+    return _q(color, lowp), _q(add, lowp)
+
+
 def frame(world: World, ecfg: EngineConfig, i: int,
           cam: pipeline.CameraArrays, rate: str, gi: torch.Tensor, state,
           offset: int, *, upscaler: str, gi_cadence: int,
           include_gi: bool = True, warp_taps: str = "pallas",
-          lowp: bool = False) -> dict:
-    """Frame ``i`` at ``rate`` from the GI words ``gi`` and the post
-    stage's ``state``, with the GI window at ``offset``.  Returns ``{"gi":
-    the words after the frame, "color", "motion", "depth": (H, W, ...) at
-    render size after the composite and the expand, "image": the displayed
-    image, "state": the post stage's next state}``."""
+          net: up_ref.Net | None = None, comp_cadence: int = 1,
+          addend: torch.Tensor | None = None, lowp: bool = False) -> dict:
+    """Frame ``i`` at ``rate`` from the GI words ``gi``, the post stage's
+    ``state`` and, with ``comp_cadence`` > 1, the carried composite
+    ``addend`` ((H, W, 3); unread where frame ``i`` composites), with the
+    GI window at ``offset``; ``net``: the learned upscaler (``upscaler.load``)
+    of the post stage ``"net"``.  Returns ``{"gi": the words after the
+    frame, "color", "motion", "depth": (H, W, ...) at render size after the
+    composite and the expand, "image": the displayed image, "state": the
+    post stage's next state, "addend": the addend carried on}``."""
     if upscaler not in POST_STAGES:
         raise ValueError(f"post stage {upscaler!r}: not one of "
                          f"{POST_STAGES}")
@@ -127,7 +167,8 @@ def frame(world: World, ecfg: EngineConfig, i: int,
     out, gb = res if include_gi else (res, None)
     color = _q(out.color, lowp)
     if include_gi:
-        color = _q(pipeline.gi_composite(color, gb, gi, w.sdf, ecfg), lowp)
+        color, addend = _composite(color, gb, gi, w, ecfg, i, rate, phase,
+                                   comp_cadence, addend, lowp)
     motion, depth = out.motion, out.depth
     dev = color.device
     valid = None
@@ -145,6 +186,11 @@ def frame(world: World, ecfg: EngineConfig, i: int,
     color, motion, depth = (_q(a, lowp) for a in (color, motion, depth))
     if upscaler == "none":
         image = color
+    elif upscaler == "net":
+        image = _q(up_ref.upscale(net, color, motion, depth, cam.jitter,
+                                  state, lowp_dtype=up_ref.FP8 if lowp
+                                  else None), lowp)
+        state = image
     else:
         image, state = temporal.temporal_upscale(
             color, motion, depth, cam.jitter, state, valid=valid,
@@ -152,4 +198,4 @@ def frame(world: World, ecfg: EngineConfig, i: int,
         image = _q(image, lowp)
         state = state._replace(history=image)
     return {"gi": gi, "color": color, "motion": motion, "depth": depth,
-            "image": image, "state": state}
+            "image": image, "state": state, "addend": addend}

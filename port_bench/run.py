@@ -82,6 +82,21 @@ def metric_values(cell, rec, trace: bool) -> dict:
     return out
 
 
+def stage_line(trace: dict) -> str:
+    """The sub-window's top-level spans (``rec.trace["stages"]``), a frame:
+    launches, device ms and idle ms of each."""
+    from port_bench import stages
+
+    st = trace.get("stages") or {}
+    n = trace["frames"]
+    parts = [f"{k} {r['launches'] / n:.1f} / {r['device_ms'] / n:.3f} / "
+             f"{r['idle_ms'] / n:.3f}"
+             for k in ("frame", *stages.TOP)
+             if (r := st.get("stages", {}).get(k))]
+    return ("sub-window stages, a frame (launches / device ms / idle ms): "
+            + ("; ".join(parts) or "none"))
+
+
 def measure(cell, seed: int, seconds: float, trace: bool, device="cuda",
             max_frames=None, t_start: float = T_START):
     """Set-up, window, sub-window and check of ``cell`` on ``device``.
@@ -152,6 +167,7 @@ def main(argv=None) -> int:
                             "idle_gaps": rec.trace["idle_gaps"]}
         log(f"sub-window: frames {rec.trace['variants']}, "
             f"K1 {rec.trace['k1_records']}/{rec.trace['k1_launched']}")
+        log(stage_line(rec.trace))
     out["card"] = card_info()
     out["checked"] = {k: {"value": nums[k], "limit": limits[k]}
                       for k in check.NUMBERS}

@@ -11,6 +11,14 @@ sits in a file of its own, found by its name:
   that returns the metric's value, or None where it finds nothing to read;
 * a cell's limits on the numbers that decide ``correct``:
   ``port_bench/limits/<workload>.json``.
+
+A configuration's frame loop is its ``loop`` group: ``scale``, ``post``
+(the post stage), ``rates``, ``gi_cadence``, ``include_gi``, ``warp_taps``
+and ``sub_frames``, and two optional keys: ``net``, the path from the
+repository's root of the learned upscaler's parameter checkpoint (a pickle
+of flax's tree, as ``checkpoints/upscaler.pkl``), which ``post`` ``"net"``
+needs, and ``comp_cadence``, a GI composite every that many frames (1
+where it is left out).
 """
 
 from __future__ import annotations
@@ -54,11 +62,19 @@ class Cell:
         self.config_entry = _one(bench["configs"], self.entry["config"],
                                  "config")
         self.config = _json(root / self.config_entry["file"])
+        check_loop(self.config["loop"])
         self.traffic = _json(here / "traffic" / f"{self.entry['traffic']}.json")
         self.limits = _json(here / "limits" / f"{name}.json")
         self.end_to_end = [m for m in bench["end_to_end"] if _reports(m, name)]
         self.per_layer = [m for m in bench["per_layer"] if _reports(m, name)]
         self.here = here
+        self.root = root
+
+    def net_path(self) -> Path | None:
+        """The learned upscaler's checkpoint, or None where the loop names
+        none."""
+        net = self.config["loop"].get("net")
+        return None if net is None else self.root / net
 
     def metrics(self, trace: bool) -> list[dict]:
         """The metrics a run reports: the end-to-end ones with ``--trace
@@ -73,6 +89,23 @@ class Cell:
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod.read
+
+
+def check_loop(loop: dict) -> None:
+    """Refuse a ``loop`` group whose optional keys (module docstring) are
+    missing where they are needed or out of their range."""
+    net = loop.get("net")
+    if (loop["post"] == "net") != (net is not None):
+        raise ValueError('post "net", and it alone, needs the key '
+                         '"loop.net": the path of its parameter checkpoint')
+    if loop["post"] == "net" and loop["scale"] != 3:
+        raise ValueError('post "net" upscales 3x: "loop.scale" must be 3')
+    if net is not None and (not isinstance(net, str) or net.startswith("/")
+                            or ".." in Path(net).parts):
+        raise ValueError(f'"loop.net" {net!r}: a path inside the repository')
+    cad = loop.get("comp_cadence", 1)
+    if not isinstance(cad, int) or isinstance(cad, bool) or cad < 1:
+        raise ValueError(f'"loop.comp_cadence" {cad!r}: a whole number >= 1')
 
 
 def _reports(metric: dict, workload: str) -> bool:

@@ -10,10 +10,10 @@ warm-up frames), a window of ``--seconds``, then the benchmark's profiled
 sub-window (``drive.PortRun.traced``).  It prints the per-stage table (host
 and self ms a window frame, launches, device and idle ms a sub-window
 frame) to stderr and one JSON line, with the figures of ``span_metrics``,
-to stdout.  The benchmark's own runs do not run it: reading the spans from
-them needs ``run.py`` to install the tracer and ``drive.py`` to keep the
-profiler's events (``PERF.md``, open questions); until then
-``subwindow`` takes the events from ``drive.summarise``'s call.
+to stdout.  The benchmark's own ``--trace 1`` runs keep ``attribute``'s
+figures of their sub-window, where spans are on, in ``rec.trace["stages"]``;
+their measured window runs with spans off, so the host figures a window
+frame are this tool's alone.
 """
 
 from __future__ import annotations
@@ -79,9 +79,10 @@ def attribute(events, frames: int) -> dict:
     for e in events:
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            # a span's range also lies on the device's timeline; where the
-            # events carry no activity type, only its name tells it apart
-            if drive._device_op(e) and not name.startswith(PREFIX):
+            # a span's range also lies on the device's timeline
+            # (``drive.ANNOTATIONS`` tells it apart where the events carry no
+            # activity type)
+            if drive._device_op(e):
                 dev_ops.append(e)
         elif name == "pb.subwindow":
             t0 = e.start_ns()
@@ -211,29 +212,18 @@ def table(window: dict, frames: int, stages: dict | None) -> str:
     return "\n".join(lines)
 
 
-def subwindow(prun):
-    """``prun``'s profiled sub-window (``drive.PortRun.traced``) with spans
-    on; returns its trace summary and the profiler's events, taken from
-    the call ``traced`` makes to ``drive.summarise``.  Raises
-    ``RuntimeError`` where that call brought no events."""
-    from port_bench import drive
-
-    got = {}
-    summarise = drive.summarise
-
-    def keep(events, n):
-        got["events"] = list(events)
-        return summarise(events, n)
-    drive.summarise = keep
-    try:
-        prun.traced()
-    finally:
-        drive.summarise = summarise
-    if not got.get("events"):
+def subwindow(prun) -> dict:
+    """``prun``'s profiled sub-window (``drive.PortRun.traced``, spans on);
+    returns its trace summary, with ``attribute``'s figures under
+    ``"stages"``.  Raises ``RuntimeError`` where the sub-window brought no
+    events to attribute."""
+    prun.traced()
+    t = prun.rec.trace
+    if not t or not t.get("stages"):
         raise RuntimeError("the profiled sub-window brought no events: "
-                           "drive.PortRun.traced no longer calls "
-                           "drive.summarise with them")
-    return prun.rec.trace, got["events"]
+                           "drive.PortRun.traced found no device operation "
+                           "in its pb.subwindow range")
+    return t
 
 
 def measure(cell, seed: int, seconds: float, device="cuda",
@@ -260,9 +250,8 @@ def measure(cell, seed: int, seconds: float, device="cuda",
                "overflow": over, "gi_windows": gi_windows}
         stages = None
         if prun.dev.type == "cuda":
-            t, events = subwindow(prun)
-            stages = attribute(events, t["frames"])
-            stages["gi_frames"] = sum(g for _, g in t["variants"])
+            t = subwindow(prun)
+            stages = t["stages"]
             res.update(stages=stages, variants=t["variants"])
     finally:
         profiling.disable()
